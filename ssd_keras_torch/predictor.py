@@ -1,0 +1,145 @@
+"""High-level serving API: images in, detections in original coordinates out.
+
+Port of ``ssd_keras_tpu/predictor.py``. :class:`SSDPredictor` takes images of
+any size, uploads them as uint8 from pinned memory, resizes them on the
+model's device (bilinear with antialiasing, the triangle filter PIL's
+``Image.BILINEAR`` uses), runs an ``inference`` or ``inference_fast`` model,
+and maps the detections back to each image's own pixel frame. Inputs that
+PIL must normalise first (grayscale, RGBA, palette) are resized on the host.
+Requests are chunked and padded to the predictor's batch size.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = ["SSDPredictor", "device_resize_batch"]
+
+
+def device_resize_batch(images: torch.Tensor, out_height: int, out_width: int) -> torch.Tensor:
+    """Bilinear-resize a (B, H, W, 3) batch to (B, out_h, out_w, 3) float32.
+
+    ``F.interpolate(mode='bilinear', antialias=True, align_corners=False)``,
+    the counterpart of ``jax.image.resize(..., 'linear', antialias=True)``.
+    """
+    x = images.float().permute(0, 3, 1, 2)
+    x = F.interpolate(
+        x, size=(out_height, out_width), mode="bilinear", antialias=True,
+        align_corners=False,
+    )
+    return x.permute(0, 2, 3, 1)
+
+
+class SSDPredictor:
+    """Batched end-to-end SSD inference on the model's device.
+
+    Args:
+      model: an 'inference' or 'inference_fast' model (``ssd_300`` output).
+      batch_size: requests are chunked and padded to this batch size.
+      confidence_thresh: post-filter on returned rows (the model's decode
+        already applied its configured threshold, NMS and top-k).
+      resize_on_device: resize on the model's device (default). ``False``
+        resizes every non-model-size input on the host with PIL.
+    """
+
+    def __init__(self, model: nn.Module, batch_size: int = 8,
+                 confidence_thresh: float = 0.0, resize_on_device: bool = True):
+        if model.mode == "training":
+            raise ValueError(
+                "SSDPredictor needs an 'inference' or 'inference_fast' model."
+            )
+        self.model = model
+        self.config = model.config
+        self.device = next(model.parameters()).device
+        self.batch_size = int(batch_size)
+        self.confidence_thresh = confidence_thresh
+        self.resize_on_device = resize_on_device
+        self._model_hw = (self.config.img_height, self.config.img_width)
+
+    def _resize_host(self, image: np.ndarray) -> np.ndarray:
+        """PIL resize for inputs the device path does not take directly."""
+        from PIL import Image
+
+        h, w = self._model_hw
+        return np.asarray(
+            Image.fromarray(np.asarray(image, np.uint8)).convert("RGB").resize(
+                (w, h), Image.BILINEAR
+            ),
+            dtype=np.float32,
+        )
+
+    def _upload(self, batch: np.ndarray) -> torch.Tensor:
+        host = torch.from_numpy(batch)
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        return host.to(self.device, non_blocking=True)
+
+    @torch.inference_mode()
+    def _run(self, images: torch.Tensor) -> torch.Tensor:
+        h, w = self._model_hw
+        if tuple(images.shape[1:3]) == (h, w):
+            x = images.float()
+        else:
+            x = device_resize_batch(images, h, w)
+        return self.model(x)
+
+    def predict(self, images: Sequence[np.ndarray]) -> List[np.ndarray]:
+        """Detections per image: rows ``[class_id, conf, xmin, ymin, xmax, ymax]``
+        in each input image's own pixel coordinates, zero rows removed."""
+        h, w = self._model_hw
+        scales = []
+        groups: Dict[Tuple, Tuple[List[int], List[np.ndarray]]] = {}
+        for i, image in enumerate(images):
+            image = np.asarray(image)
+            ih, iw = image.shape[:2]
+            scales.append((iw / w, ih / h))
+            device_ok = image.ndim == 3 and image.shape[2] == 3 and (
+                self.resize_on_device or (ih, iw) == (h, w)
+            )
+            if not device_ok:
+                image = self._resize_host(image)
+                ih, iw = h, w
+            idxs, arrs = groups.setdefault((ih, iw, image.dtype.str), ([], []))
+            idxs.append(i)
+            arrs.append(image)
+
+        outputs: List[np.ndarray] = [None] * len(images)
+        for idxs, arrs in groups.values():
+            # The upload and forward of chunk N+1 are queued on the device
+            # while chunk N's detections come back; at most two in flight.
+            pending = deque()  # (chunk_start, n_valid, device_out)
+
+            def drain_one():
+                start, n, out = pending.popleft()
+                dets = out.cpu().numpy()
+                for j in range(n):
+                    outputs[idxs[start + j]] = dets[j]
+
+            for start in range(0, len(arrs), self.batch_size):
+                chunk = arrs[start : start + self.batch_size]
+                n = len(chunk)
+                if n < self.batch_size:  # pad to the batch size
+                    chunk = chunk + [np.zeros_like(chunk[0])] * (self.batch_size - n)
+                pending.append((start, n, self._run(self._upload(np.stack(chunk)))))
+                if len(pending) > 2:
+                    drain_one()
+            while pending:
+                drain_one()
+
+        results = []
+        for dets, (sx, sy) in zip(outputs, scales):
+            keep = (dets[:, 0] != 0) & (dets[:, 1] > self.confidence_thresh)
+            dets = dets[keep].copy()
+            dets[:, [2, 4]] *= sx
+            dets[:, [3, 5]] *= sy
+            results.append(dets)
+        return results
+
+    def __call__(self, images):
+        return self.predict(images)

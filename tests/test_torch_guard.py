@@ -1,0 +1,95 @@
+"""Guards of the PyTorch port: a clean import, the kernel build's flags, and
+no silent fallback when the kernel cannot be built or launched."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from ssd_keras_torch.kernels import build
+from ssd_keras_torch.kernels import nms as nms_kernel
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def test_import_needs_neither_jax_nor_the_jax_package():
+    code = (
+        "import sys, ssd_keras_torch\n"
+        "bad = {'jax', 'flax', 'ssd_keras_tpu', 'h5py', 'PIL', 'triton'} & set(sys.modules)\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+def test_nvcc_command_targets_hopper_with_exact_float_math(tmp_path):
+    cmd = build.nvcc_command("nvcc", [tmp_path / "a.cu", tmp_path / "b.cu"], tmp_path / "lib.so")
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert "--fmad=false" in cmd
+    assert not any("fast_math" in c or "fast-math" in c for c in cmd)
+    assert cmd[-2:] == [str(tmp_path / "a.cu"), str(tmp_path / "b.cu")]
+    assert cmd[cmd.index("-o") + 1] == str(tmp_path / "lib.so")
+
+
+def test_library_name_follows_the_sources(tmp_path):
+    src = tmp_path / "k.cu"
+    src.write_text("// one\n")
+    first = build._library_path([src])
+    src.write_text("// two\n")
+    assert build._library_path([src]) != first
+
+
+@pytest.fixture()
+def no_build_dir(tmp_path, monkeypatch):
+    """An empty build directory, so nothing is loaded from an earlier build."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    return tmp_path / "_build"
+
+
+def test_missing_nvcc_raises(no_build_dir, tmp_path, monkeypatch):
+    monkeypatch.setenv("PATH", str(tmp_path / "empty"))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.find_nvcc()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.load_library.__wrapped__()
+    assert not list(no_build_dir.glob("*.so"))
+
+
+def _fake_nvcc(tmp_path, script):
+    bindir = tmp_path / "bin"
+    bindir.mkdir()
+    nvcc = bindir / "nvcc"
+    nvcc.write_text("#!/bin/sh\n" + script)
+    nvcc.chmod(0o755)
+    return bindir
+
+
+def test_failed_build_raises(no_build_dir, tmp_path, monkeypatch):
+    monkeypatch.setenv("PATH", str(_fake_nvcc(tmp_path, "echo 'error: bad' >&2\nexit 1\n")))
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        build.load_library.__wrapped__()
+    assert not list(no_build_dir.iterdir())  # the half-built file is removed
+
+
+def test_unloadable_library_raises(no_build_dir, tmp_path, monkeypatch):
+    # An "nvcc" that writes a file that is not a shared library to its -o.
+    script = 'while [ "$1" != "-o" ]; do shift; done\necho junk > "$2"\n'
+    monkeypatch.setenv("PATH", str(_fake_nvcc(tmp_path, script)))
+    with pytest.raises(RuntimeError, match="cannot load"):
+        build.load_library.__wrapped__()
+
+
+def test_wrapper_has_no_fallback_for_other_devices():
+    boxes = torch.empty(2, 5, 4, device="meta")
+    valid = torch.empty(2, 5, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        nms_kernel.greedy_nms_mask_batched(boxes, valid)
+
+
+def test_kernel_source_is_where_the_build_looks():
+    assert (build.CSRC_DIR / "nms.cu").is_file()
+    assert [p.name for p in build._sources()] == ["nms.cu"]
+    assert os.path.basename(build.BUILD_DIR) == "_build"

@@ -1,0 +1,182 @@
+"""The port's SSD300 and its parts against the flax model, on shared weights.
+
+Weights come from flax ``init`` and reach the port through
+``weights_io.from_flax_params``; inputs are numpy arrays from a seed. The
+whole-model check scales conv1_1 by 1/100 on both sides: He init carries the
+raw 0-255 input's magnitude (~75 RMS) through the trunk, which saturates the
+softmax to exactly 1.0 and overflows the box exponent; at 1/100 the scores
+and offsets lie in a trained detector's range, so the comparison means
+something.
+"""
+
+import flax.linen as fnn
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from ssd_keras_tpu.config import SSDConfig as JaxSSDConfig
+from ssd_keras_tpu.models import layers as jax_layers
+from ssd_keras_tpu.models import ssd_300 as jax_ssd_300
+from ssd_keras_tpu.models import ssd300_predictor_sizes as jax_sizes
+from ssd_keras_tpu.models.common import assemble_predictions as jax_assemble
+from ssd_keras_torch.config import SSDConfig
+from ssd_keras_torch.models import layers, ssd_300, ssd300_predictor_sizes
+from ssd_keras_torch.models.common import assemble_predictions, validate_mode
+from ssd_keras_torch.weights_io import from_flax_params, to_flax_params
+
+torch.set_num_threads(2)
+
+
+def _numpy_params(variables):
+    return jax.tree_util.tree_map(np.asarray, dict(variables["params"]))
+
+
+@pytest.fixture(scope="module")
+def ssd300_shared():
+    """(flax model, flax params as numpy with conv1_1 scaled, an image)."""
+    cfg = JaxSSDConfig.ssd300(n_classes=20)
+    model, _ = jax_ssd_300(cfg)
+    x = np.random.RandomState(2).rand(1, 300, 300, 3).astype(np.float32) * 255
+    params = _numpy_params(model.init(jax.random.PRNGKey(0), x))
+    params["conv1_1"]["kernel"] = params["conv1_1"]["kernel"] / 100.0
+    return model, params, x
+
+
+@pytest.mark.parametrize("dataset, n_classes", [("voc", 20), ("coco", 80)])
+def test_anchor_tensor_equals_jax(dataset, n_classes):
+    sizes = ssd300_predictor_sizes(300, 300)
+    got = SSDConfig.ssd300(n_classes=n_classes, dataset=dataset).anchor_tensor(sizes)
+    expected = JaxSSDConfig.ssd300(n_classes=n_classes, dataset=dataset).anchor_tensor(sizes)
+    assert got.shape == (8732, 8) and got.dtype == np.float64
+    np.testing.assert_array_equal(got, expected)
+
+
+@pytest.mark.parametrize("hw", [(300, 300), (512, 512), (301, 300), (480, 640)])
+def test_predictor_sizes_equal_jax(hw):
+    assert ssd300_predictor_sizes(*hw) == jax_sizes(*hw)
+
+
+def test_flax_conversion_round_trips(ssd300_shared):
+    _, params, _ = ssd300_shared
+    state = from_flax_params(params)
+    model, _ = ssd_300(SSDConfig.ssd300(n_classes=20))
+    assert set(state) == set(model.state_dict())
+    model.load_state_dict(state)  # strict: every key and shape matches
+    assert state["fc6.weight"].shape == (1024, 512, 3, 3)
+    assert state["conv4_3_norm.gamma"].shape == (512,)
+    back = to_flax_params(model.state_dict())
+    assert set(back) == set(params)
+    for layer, tensors in params.items():
+        assert set(back[layer]) == set(tensors)
+        for key, value in tensors.items():
+            np.testing.assert_array_equal(back[layer][key], value)
+
+
+def test_ssd300_y_pred_matches_flax(ssd300_shared):
+    """f32, batch 1, 300x300. Tolerance 1e-3: the two frameworks sum the
+    convolutions in different orders, and through 20 VGG layers and the
+    softmax that noise reaches ~1e-4 (the argument of
+    tests/test_models.py:150-153); a wrong layer errs by orders more."""
+    flax_model, params, x = ssd300_shared
+    expected = np.asarray(flax_model.apply({"params": params}, x))
+    model, _ = ssd_300(SSDConfig.ssd300(n_classes=20))
+    model.load_state_dict(from_flax_params(params))
+    with torch.no_grad():
+        got = model(torch.from_numpy(x)).numpy()
+    assert got.shape == expected.shape == (1, 8732, 33)
+    assert 0.05 < expected[..., 1:21].max() < 0.999  # not saturated
+    np.testing.assert_allclose(got, expected, rtol=1e-3, atol=1e-3)
+
+
+def test_l2_normalization_matches_flax():
+    rng = np.random.RandomState(0)
+    x = rng.randn(2, 5, 7, 16).astype(np.float32) * 30
+    x[0, 0, 0] = 0.0  # an all-zero pixel takes the 1e-12 clamp
+    gamma = rng.rand(16).astype(np.float32) * 20
+    expected = np.asarray(jax_layers.L2Normalization().apply({"params": {"gamma": gamma}}, x))
+    mod = layers.L2Normalization(16)
+    with torch.no_grad():
+        mod.gamma.copy_(torch.from_numpy(gamma))
+        got = mod(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).numpy()
+    np.testing.assert_allclose(got, expected, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("std, swap", [(None, (2, 1, 0)), ((127.5, 127.5, 127.5), None)])
+def test_preprocess_input_matches_jax(std, swap):
+    x = np.random.RandomState(1).rand(2, 4, 5, 3).astype(np.float32) * 255
+    mean = (123.0, 117.0, 104.0)
+    expected = np.asarray(jax_layers.preprocess_input(jnp.asarray(x), mean, std, swap))
+    got = layers.preprocess_input(torch.from_numpy(x), mean, std, swap).numpy()
+    np.testing.assert_array_equal(got, expected)
+
+
+class _FlaxHead(fnn.Module):
+    n_boxes: int
+    n_classes: int
+
+    @fnn.compact
+    def __call__(self, feat):
+        return jax_layers.fused_prediction_heads(
+            self, feat, "fc7", self.n_boxes, self.n_classes, jnp.float32
+        )
+
+
+def test_fused_prediction_heads_match_flax():
+    rng = np.random.RandomState(3)
+    feat = rng.randn(2, 6, 5, 32).astype(np.float32)
+    head = _FlaxHead(n_boxes=6, n_classes=5)
+    params = _numpy_params(head.init(jax.random.PRNGKey(1), feat))
+    for p in params.values():
+        p["bias"] = rng.randn(*p["bias"].shape).astype(np.float32)
+    exp_conf, exp_loc = head.apply({"params": params}, feat)
+    state = from_flax_params(params)
+    conf, loc = torch.nn.Conv2d(32, 30, 3, padding=1), torch.nn.Conv2d(32, 24, 3, padding=1)
+    conf.load_state_dict({"weight": state["fc7_mbox_conf.weight"], "bias": state["fc7_mbox_conf.bias"]})
+    loc.load_state_dict({"weight": state["fc7_mbox_loc.weight"], "bias": state["fc7_mbox_loc.bias"]})
+    with torch.no_grad():
+        got_conf, got_loc = layers.fused_prediction_heads(
+            torch.from_numpy(feat).permute(0, 3, 1, 2), conf, loc
+        )
+    np.testing.assert_allclose(got_conf.numpy(), exp_conf, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got_loc.numpy(), exp_loc, rtol=1e-5, atol=1e-5)
+
+
+def test_assemble_predictions_matches_jax():
+    """The NHWC flatten order of the boxes and the f32 softmax."""
+    rng = np.random.RandomState(4)
+    shapes = [(3, 3, 4), (2, 2, 6)]
+    conf = [rng.randn(2, h, w, n * 5).astype(np.float32) * 3 for h, w, n in shapes]
+    loc = [rng.randn(2, h, w, n * 4).astype(np.float32) for h, w, n in shapes]
+    anchors = rng.rand(sum(h * w * n for h, w, n in shapes), 8)
+    expected = np.asarray(jax_assemble(conf, loc, anchors, 5))
+    got = assemble_predictions(
+        [torch.from_numpy(c) for c in conf], [torch.from_numpy(c) for c in loc],
+        torch.from_numpy(anchors).float(), 5,
+    ).numpy()
+    np.testing.assert_allclose(got, expected, rtol=1e-6, atol=1e-7)
+
+
+def test_pools_pad_at_the_end_like_same():
+    """75 -> 38 with the last window holding only row/column 74."""
+    x = np.random.RandomState(5).randn(1, 75, 75, 2).astype(np.float32)
+    expected = np.asarray(fnn.max_pool(jnp.asarray(x), (2, 2), strides=(2, 2), padding="SAME"))
+    got = F.max_pool2d(torch.from_numpy(x).permute(0, 3, 1, 2), 2, 2, ceil_mode=True)
+    np.testing.assert_array_equal(got.permute(0, 2, 3, 1).numpy(), expected)
+
+
+def test_unknown_mode_raises():
+    with pytest.raises(ValueError, match="mode"):
+        validate_mode("bogus")
+    with pytest.raises(ValueError, match="mode"):
+        ssd_300(mode="bogus")
+
+
+def test_seeded_init_is_reproducible_across_builds():
+    a, _ = ssd_300(generator=torch.Generator().manual_seed(7))
+    b, _ = ssd_300(generator=torch.Generator().manual_seed(7))
+    for (name, pa), pb in zip(a.state_dict().items(), b.state_dict().values()):
+        assert torch.equal(pa, pb), name
+    assert torch.all(a.conv4_3_norm.gamma == 20.0)
