@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SSD300 serving path once on one CUDA card.
+"""Drive the PyTorch port's SSD300 serving and training paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -20,7 +20,20 @@ Phases, in order; the first failure raises and the script exits non-zero:
 5. Serving: ``SSDPredictor`` answers 8 frames of 300x300, 5 of 480x640 and
    1 frame, all uint8.
 6. Timings (CUDA events after warm-up): SSD300 batch-8 'inference' img/s at
-   bf16 and f32; the NMS kernel against the plain version at L=160, K=400.
+   bf16 and f32; at bf16, serving from the kept bf16 copies of the f32
+   weights against casting them at every call and against bf16 parameters,
+   interleaved; the NMS kernel against the plain version at L=160, K=400.
+7. Training, SSD300 VOC at full width on 64 SynthVOC images from the seed:
+   the targets of a batch of 32 encoded on the card equal those encoded on
+   the CPU; one f32 SGD step (TF32 off, batch 2) on the card matches the
+   same step on the CPU; ``Trainer.fit_generator`` trains with bf16 compute
+   over f32 weights at batch 32 (SGD momentum 0.9, L2 5e-4, warmup to lr
+   1e-4, clipnorm 5, a ``CSVLogger`` and a ``ModelCheckpoint``) and its loss
+   falls; the checkpoint restores the same weights and y_pred; one train
+   step with its encode makes no host synchronisation; the trained weights
+   serve through 'inference' mode and the NMS kernel. Timings: the train
+   step's img/s at batch 32 (bf16, images and targets on the card) and the
+   encode of a batch of 32.
 
 It prints JSON lines (timings, then the kernels line), then as its last line
 ``{"ok": true, "device": {...}}``. With no CUDA device it raises before
@@ -28,18 +41,24 @@ printing any result. Imports torch, numpy and ssd_keras_torch only.
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from ssd_keras_torch import SSDConfig, SSDPredictor, ssd_300
+from ssd_keras_torch import SSDConfig, SSDInputEncoder, SSDLoss, SSDPredictor, ssd_300
+from ssd_keras_torch import train as T
+from ssd_keras_torch.data import SynthVOC
 from ssd_keras_torch.decoder import decode_detections_fixed
+from ssd_keras_torch.encoder import pad_labels
 from ssd_keras_torch.kernels import build
 from ssd_keras_torch.kernels import nms as nms_kernel
+from ssd_keras_torch.models import ssd300_predictor_sizes
 from ssd_keras_torch.ops.nms import greedy_nms_mask
 
 SEED = 0
@@ -54,6 +73,33 @@ IOU_THRESHOLD = 0.45
 Y_PRED_TOL = 1e-3
 SCORE_TOL = 1e-4
 BOX_TOL = 1e-2
+
+# Training phase: 64 SynthVOC images, batches of 32, at most 8 boxes each.
+TRAIN_IMAGES = 64
+TRAIN_BATCH = 32
+MAX_GT = 8
+L2_REG = 5e-4
+BASE_LR = 1e-4
+WARMUP_STEPS = 8
+EPOCHS = 5
+STEPS_PER_EPOCH = 8
+# Card-vs-CPU tolerances of the training phase. Encoded offsets: ``log`` and
+# division may differ by an ulp between the card's and the CPU's math on
+# offsets of magnitude <= ~10; a wrong match moves an offset by O(1) and
+# flips a class column, which must be equal.
+OFFSET_TOL = 1e-5
+# One f32 SGD step at batch 2 from the same weights and targets: y_pred
+# differs by ~1e-5 between the devices (Y_PRED_TOL above), the loss sums
+# ~100 such terms over the positives and mined negatives, and the
+# gradients carry the same summation-order noise.
+STEP_LOSS_RTOL = 1e-4
+STEP_PARAM_TOL = 1e-2  # of the step's largest update
+# A checkpoint restored into a new module on the same card: the same
+# weights bit for bit; y_pred within 1e-6 in case cuDNN picks another
+# algorithm for the new module.
+RESTORE_TOL = 1e-6
+# Interleaved rounds of the bf16 weight-cast A/B (phase 6).
+CAST_AB_ROUNDS = 20
 
 
 def log(msg):
@@ -177,6 +223,183 @@ def summary(runs):
     med = statistics.median(runs)
     return dict(median=med, min=min(runs), max=max(runs),
                 spread_pct=100 * (max(runs) - min(runs)) / med, runs=runs)
+
+
+def cast_ab(state, bf16, x, card):
+    """What f32 weights cost bf16 serving: the 'inference' module ``bf16``
+    serving from its kept bf16 copies of the weights (the main path), the
+    same module casting them at every call (its copies dropped before each
+    call), and a module holding bf16 parameters (nothing to cast). Rounds
+    of 20 calls of each, interleaved in one process: whole processes differ
+    by more than these variants do."""
+    bf16_params = model_for(state, "inference", torch.bfloat16, x.device).to(torch.bfloat16)
+
+    def cast_each_call():
+        bf16._cast_cache.clear()
+        return bf16(x)
+
+    variants = {"cached": lambda: bf16(x), "cast_each_call": cast_each_call,
+                "bf16_params": lambda: bf16_params(x)}
+    runs = {name: [] for name in variants}
+    for _ in range(CAST_AB_ROUNDS):
+        for name, fn in variants.items():
+            runs[name] += time_cuda(fn, iters=20, repeats=1, warmup=1)
+    cost = [c - k for c, k in zip(runs["cast_each_call"], runs["cached"])]
+    log(f"bf16 serving weight casts, {CAST_AB_ROUNDS} interleaved rounds: cast each call "
+        f"slower than cached in {sum(d > 0 for d in cost)} of {len(cost)}")
+    return dict(metric="ssd300_bf16_weight_cast_ab", batch=BATCH, rounds=CAST_AB_ROUNDS,
+                **{f"{name}_ms": summary(r) for name, r in runs.items()},
+                cast_cost_ms=dict(median=statistics.median(cost), min=min(cost), max=max(cost)),
+                card=card)
+
+
+def sgd_step(state, x, y, device):
+    """One f32 SGD step (momentum 0.9, L2, lr 1e-3, clipnorm 5) from
+    ``state`` on ``device``. Returns (loss, the module's state_dict)."""
+    model = model_for(state, "training", torch.float32, device)
+    opt = T.sgd_with_momentum(model.parameters(), 1e-3, 0.9, clipnorm=5.0)
+    metrics = T.make_train_step(model, opt, SSDLoss(), l2_reg=L2_REG)(x.to(device), y.to(device))
+    return float(metrics["loss"]), model.state_dict()
+
+
+def bf16_trainer(state, device):
+    """An SSD300 'training' module with bf16 compute over f32 weights from
+    ``state``, and its Trainer: SGD momentum 0.9, L2, a linear warmup to
+    BASE_LR and clipnorm 5 (the recipe from random weights)."""
+    model = model_for(state, "training", torch.bfloat16, device)
+    opt = T.sgd_with_momentum(model.parameters(), T.linear_warmup_lr(BASE_LR, WARMUP_STEPS),
+                              0.9, clipnorm=5.0)
+    step = T.make_train_step(model, opt, SSDLoss(), l2_reg=L2_REG)
+    return T.Trainer(model, opt, step, base_lr=BASE_LR)
+
+
+def train_phase(state, device, card):
+    """Phase 7. Returns its timing lines."""
+    cfg = SSDConfig.ssd300()
+    sizes = ssd300_predictor_sizes(300, 300)
+    n_cls = cfg.n_classes_with_background
+    images, labels = SynthVOC(TRAIN_IMAGES, image_size=300, split="train", seed=SEED).materialize()
+    padded, counts = pad_labels(labels, MAX_GT)
+    x_all = torch.from_numpy(images).to(device)  # uint8; the model casts
+    p_all, c_all = torch.from_numpy(padded).to(device), torch.from_numpy(counts).to(device)
+    enc = SSDInputEncoder(cfg, sizes, max_gt_boxes=MAX_GT, device=device)
+    enc_cpu = SSDInputEncoder(cfg, sizes, max_gt_boxes=MAX_GT)
+    b = TRAIN_BATCH
+
+    # Encode on the card against the CPU.
+    y_card = enc.encode_padded(p_all[:b], c_all[:b]).cpu()
+    y_cpu = enc_cpu.encode_padded(padded[:b], counts[:b])
+    if not torch.equal(y_card[..., :n_cls], y_cpu[..., :n_cls]):
+        rows = int((y_card[..., :n_cls] != y_cpu[..., :n_cls]).any(-1).sum())
+        raise AssertionError(f"encode: {rows} class rows differ between the card and the CPU")
+    if not torch.equal(y_card[..., -8:], y_cpu[..., -8:]):
+        raise AssertionError("encode: anchor columns differ between the card and the CPU")
+    offset_err = float((y_card[..., -12:-8] - y_cpu[..., -12:-8]).abs().max())
+    n_pos = int((y_cpu[..., 1:n_cls].amax(-1) > 0).sum())
+    n_neutral = int((y_cpu[..., :n_cls].sum(-1) == 0).sum())
+    log(f"encode batch {b} card vs CPU: class columns equal, max |offset diff| "
+        f"{offset_err:.3g} (limit {OFFSET_TOL}); {n_pos} positive and {n_neutral} "
+        f"neutral anchors of {b * y_cpu.shape[1]}, {int(counts[:b].sum())} boxes")
+    if offset_err > OFFSET_TOL:
+        raise AssertionError("encode: offsets differ between the card and the CPU")
+
+    # One f32 SGD step on the card against the CPU (TF32 is off).
+    x2 = torch.from_numpy(images[:2].astype(np.float32))
+    loss_cpu, after_cpu = sgd_step(state, x2, y_cpu[:2], "cpu")
+    loss_card, after_card = sgd_step(state, x2, y_cpu[:2], device)
+    update = max(float((after_cpu[k] - state[k]).abs().max()) for k in state)
+    param_err = max(float((after_card[k].cpu() - after_cpu[k]).abs().max()) for k in state)
+    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    log(f"f32 SGD step card vs CPU: loss {loss_card:.6f} vs {loss_cpu:.6f} (rel {loss_rel:.3g}, "
+        f"limit {STEP_LOSS_RTOL}); max |param diff| {param_err:.3g} = "
+        f"{param_err / update:.3g} of the largest update {update:.3g} (limit {STEP_PARAM_TOL})")
+    if not (loss_rel <= STEP_LOSS_RTOL and param_err <= STEP_PARAM_TOL * update):
+        raise AssertionError("the f32 train step on the card differs from the CPU")
+
+    # Training through Trainer.fit_generator, targets encoded on the card.
+    def batches():
+        i = 0
+        while True:
+            sl = slice(i * b, (i + 1) * b)
+            yield x_all[sl], enc.encode_padded(p_all[sl], c_all[sl])
+            i = (i + 1) % (TRAIN_IMAGES // b)
+
+    trainer = bf16_trainer(state, device)
+    launches_before = nms_kernel.launches
+    with tempfile.TemporaryDirectory() as tmp:
+        csv_path = os.path.join(tmp, "log.csv")
+        callbacks = [T.CSVLogger(csv_path), T.TerminateOnNaN(),
+                     T.ModelCheckpoint(tmp, monitor="loss", save_best_only=False)]
+        t0 = time.perf_counter()
+        history = trainer.fit_generator(batches(), steps_per_epoch=STEPS_PER_EPOCH, epochs=EPOCHS,
+                                        callbacks=callbacks, verbose=False)
+        fit_s = time.perf_counter() - t0
+        losses = history["loss"]
+        log(f"fit_generator bf16 batch {b}: {trainer.step} steps in {fit_s:.2f} s (host clock), "
+            f"epoch losses {[round(v, 4) for v in losses]}")
+        if len(losses) != EPOCHS or not all(np.isfinite(losses)) or trainer.terminated_on_nan:
+            raise AssertionError(f"training stopped or diverged: {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"the loss did not fall: {losses}")
+        if not all(p.dtype == torch.float32 for p in trainer.module.parameters()):
+            raise AssertionError("a parameter is no longer f32 after bf16 training")
+        with open(csv_path) as f:
+            rows = f.read().strip().splitlines()
+        if rows[0] != "epoch,loss" or len(rows) != EPOCHS + 1:
+            raise AssertionError(f"CSVLogger wrote {rows}")
+
+        restored = bf16_trainer(state, device)
+        restored.restore_checkpoint(os.path.join(tmp, f"ckpt_{EPOCHS - 1}.pt"))
+    trained = trainer.module.state_dict()
+    for k, v in restored.module.state_dict().items():
+        if not torch.equal(v, trained[k]):
+            raise AssertionError(f"checkpoint: {k} differs after the restore")
+    with torch.no_grad():
+        xb = x_all[:b]
+        restore_err = float((restored.module(xb) - trainer.module(xb)).abs().max())
+    log(f"checkpoint round trip: state equal, step {restored.step}, max |y_pred diff| "
+        f"{restore_err:.3g} (limit {RESTORE_TOL})")
+    if restored.step != trainer.step or restore_err > RESTORE_TOL:
+        raise AssertionError("the restored checkpoint does not reproduce the trained model")
+
+    # One train step, with the encode of its targets, after warm-up: the host
+    # waits for nothing.
+    step = trainer.train_step
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(x_all[:b], enc.encode_padded(p_all[:b], c_all[:b]))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log("train step with encode: no host synchronisation (torch.cuda sync debug mode 'error')")
+
+    # The trained weights serve through 'inference' mode and the NMS kernel.
+    val_images, _ = SynthVOC(BATCH, image_size=300, split="val", seed=SEED).materialize()
+    server = model_for(trained, "inference", torch.bfloat16, device)
+    with torch.no_grad():
+        det = server(torch.from_numpy(val_images).to(device)).cpu().numpy()
+    serve_launches = nms_kernel.launches - launches_before
+    rows = det[det[..., 1] > 0]
+    check_in_frame("trained SSD300 on SynthVOC val", rows, 300, 300, 20)
+    log(f"trained weights served: {len(rows)} detections in {BATCH} val images, "
+        f"NMS launches {serve_launches} (training made none)")
+    if det.shape != (BATCH, 200, 6) or serve_launches < 1:
+        raise AssertionError("serving the trained weights did not launch the NMS kernel")
+
+    # Timings: the train step alone (images and targets already on the card)
+    # and the encode of one batch.
+    timed = bf16_trainer(state, device).train_step
+    xb, yb = x_all[:b], enc.encode_padded(p_all[:b], c_all[:b])
+    step_ms = summary(time_cuda(lambda: timed(xb, yb), iters=10))
+    encode_ms = summary(time_cuda(lambda: enc.encode_padded(p_all[:b], c_all[:b]), iters=20))
+    return [
+        dict(metric="ssd300_train_img_per_s", batch=b, dtype="bf16", params="f32",
+             img_per_s=b * 1e3 / step_ms["median"],
+             img_per_s_runs=[b * 1e3 / r for r in step_ms["runs"]],
+             ms_per_step=step_ms, card=card),
+        dict(metric="encode_ms", batch=b, max_gt=MAX_GT, anchors=int(y_cpu.shape[1]),
+             ms=encode_ms, card=card),
+    ]
 
 
 def main():
@@ -321,6 +544,7 @@ def main():
             img_per_s_runs=[BATCH * 1e3 / r for r in ms["runs"]],
             ms_per_batch=ms, card=card,
         ))
+    lines.append(cast_ab(state, bf16, x, card))
     boxes, _ = random_lanes(np.random.RandomState(SEED + 3), 160, 400)
     b = torch.from_numpy(boxes).to(device)
     v = torch.ones(160, 400, dtype=torch.bool, device=device)  # worst case: all valid
@@ -328,6 +552,11 @@ def main():
     plain_ms = summary(time_cuda(lambda: greedy_nms_mask(b, v, IOU_THRESHOLD), 3, warmup=1))
     lines.append(dict(metric="nms_ms", lanes=160, k=400, valid="all", kernel_ms=kernel_ms,
                       plain_ms=plain_ms, card=card))
+
+    # 7. Training.
+    with torch.enable_grad():
+        lines += train_phase(state, device, card)
+
     for line in lines:
         print(json.dumps(line), flush=True)
 

@@ -6,14 +6,18 @@ against it output by output. The hand-written Pallas kernel of the JAX
 package (greedy NMS) is a hand-written CUDA kernel here (``csrc/nms.cu``),
 built with nvcc at first use. Imports torch and numpy only.
 
-This slice covers SSD300 serving: ``ssd_300`` in the 'training',
-'inference' and 'inference_fast' modes, the fixed-shape decoders, the
-predictor and weight conversion.
+The port covers SSD300 and SSD7 in the 'training', 'inference' and
+'inference_fast' modes, the fixed-shape decoders, the predictor, weight
+conversion (BatchNorm included), and training: the target encoder, the SSD
+loss, optimizers, the train step, callbacks and the ``Trainer`` (``train``).
+Parameters stay f32; ``compute_dtype`` sets the precision of the compute.
 """
 
 from ssd_keras_torch.config import SSDConfig
 from ssd_keras_torch.decoder import decode_detections_fast_fixed, decode_detections_fixed
-from ssd_keras_torch.models import ssd_300
+from ssd_keras_torch.encoder import DegenerateBoxError, SSDInputEncoder
+from ssd_keras_torch.loss import SSDLoss
+from ssd_keras_torch.models import ssd_7, ssd_300
 from ssd_keras_torch.predictor import SSDPredictor
 from ssd_keras_torch.weights_io import (
     from_flax_params,
@@ -26,6 +30,10 @@ __version__ = "0.1.0"
 __all__ = [
     "SSDConfig",
     "ssd_300",
+    "ssd_7",
+    "SSDInputEncoder",
+    "DegenerateBoxError",
+    "SSDLoss",
     "SSDPredictor",
     "decode_detections_fixed",
     "decode_detections_fast_fixed",

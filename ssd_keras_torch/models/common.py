@@ -12,20 +12,122 @@ with boxes ordered as the C-order flatten of each predictor layer's
 
 from __future__ import annotations
 
-from typing import List
+import math
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 from ssd_keras_torch import decoder as decoder_mod
 from ssd_keras_torch.config import SSDConfig
+from ssd_keras_torch.models.layers import fuse_head_params, fused_prediction_heads
 
 __all__ = [
+    "SSDModule",
     "assemble_predictions",
     "apply_mode",
+    "init_weights",
     "same_pool_size",
     "valid_size",
     "validate_mode",
 ]
+
+
+class SSDModule(nn.Module):
+    """What the SSD models share: the config, the mode, the compute dtype
+    and the per-device constants.
+
+    Parameters stay f32 in every mode, as flax keeps them (``param_dtype``
+    f32); ``forward`` casts each weight to ``compute_dtype`` where it is
+    used, so an optimizer updates f32 master weights under bf16 compute.
+    """
+
+    def __init__(self, config: SSDConfig, mode: str, compute_dtype: torch.dtype,
+                 predictor_sizes):
+        super().__init__()
+        self.config = config
+        self.mode = validate_mode(mode)
+        self.compute_dtype = compute_dtype
+        self.anchors8 = config.anchor_tensor(predictor_sizes)  # (N, 8) float64 numpy
+        self._constants_by_device: Dict[torch.device, Dict[str, Optional[torch.Tensor]]] = {}
+        # key -> (the f32 parameters, their (_version, data_ptr), the cast result)
+        self._cast_cache: Dict[tuple, tuple] = {}
+
+    def _constants(self, device: torch.device) -> Dict[str, Optional[torch.Tensor]]:
+        """The anchors (f32) and preprocessing constants on ``device``,
+        uploaded once: a copy from the host in every forward would make the
+        host wait for the device each call."""
+        consts = self._constants_by_device.get(device)
+        if consts is None:
+            cfg = self.config
+
+            def upload(value, dtype):
+                return None if value is None else torch.tensor(value, dtype=dtype, device=device)
+
+            consts = dict(
+                anchors=upload(self.anchors8, torch.float32),
+                subtract_mean=upload(cfg.subtract_mean, torch.float32),
+                divide_by_stddev=upload(cfg.divide_by_stddev, torch.float32),
+                swap_channels=upload(cfg.swap_channels, torch.int64),
+            )
+            self._constants_by_device[device] = consts
+        return consts
+
+    def cast_params(self, key: tuple, params: Sequence[torch.Tensor], build: Callable):
+        """``build(*params)``: f32 parameters in the compute dtype.
+
+        While autograd records, ``build`` runs at every call and its cast is
+        part of the graph, as flax's ``.astype(dtype)`` is. While it does not
+        (``no_grad``, ``inference_mode``: serving, evaluation), the result is
+        kept under ``key`` and reused until one of ``params`` is replaced or
+        changed in place: an optimizer step, ``load_state_dict`` or
+        ``init_weights`` moves a parameter's ``_version``, ``module.to`` its
+        ``data_ptr``. A write through ``param.data`` moves neither and is not
+        seen.
+        """
+        if torch.is_grad_enabled():
+            return build(*params)
+        stamp = tuple((p._version, p.data_ptr()) for p in params)
+        hit = self._cast_cache.get(key)
+        if hit is not None and hit[1] == stamp and all(a is b for a, b in zip(hit[0], params)):
+            return hit[2]
+        out = build(*params)
+        self._cast_cache[key] = (tuple(params), stamp, out)
+        return out
+
+    def conv(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        """The named ``nn.Conv2d`` on ``x``, its f32 weight and bias cast to
+        ``x``'s dtype at use (flax's ``.astype(dtype)``)."""
+        m = getattr(self, name)
+        weight, bias = self.cast_params(
+            (name, x.dtype), (m.weight, m.bias), lambda w, b: (w.to(x.dtype), b.to(x.dtype)))
+        return F.conv2d(x, weight, bias, m.stride, m.padding, m.dilation)
+
+    def heads(self, feat: torch.Tensor, conf_name: str, loc_name: str):
+        """The named conf and loc heads on ``feat`` as one convolution
+        (``fused_prediction_heads``); their weights are fused and cast as
+        ``conv`` casts. Returns the two NHWC maps."""
+        conf, loc = getattr(self, conf_name), getattr(self, loc_name)
+        weight, bias = self.cast_params(
+            (conf_name, loc_name, feat.dtype), (conf.weight, loc.weight, conf.bias, loc.bias),
+            lambda cw, lw, cb, lb: fuse_head_params(cw, lw, cb, lb, feat.dtype))
+        return fused_prediction_heads(feat, weight, bias, conf.out_channels)
+
+
+def init_weights(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:
+    """He-normal conv kernels, zero biases (flax ``he_normal``: a normal
+    truncated at 2 std, std = sqrt(2 / fan_in) / 0.8796...), drawn from
+    ``generator``. L2Normalization keeps its gamma of 20, BatchNorm its unit
+    scale and zero shift."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, nn.Conv2d):
+                fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+                std = math.sqrt(2.0 / fan_in) / 0.87962566103423978
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
+                nn.init.zeros_(m.bias)
 
 
 def same_pool_size(s: int) -> int:

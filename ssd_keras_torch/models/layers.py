@@ -16,7 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["L2Normalization", "preprocess_input", "fused_prediction_heads"]
+__all__ = ["BatchNorm", "L2Normalization", "preprocess_input", "fuse_head_params",
+           "fused_prediction_heads"]
 
 
 class L2Normalization(nn.Module):
@@ -34,6 +35,51 @@ class L2Normalization(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         norm = torch.sqrt(torch.clamp_min(torch.sum(x * x, dim=1, keepdim=True), 1e-12))
         return x / norm * self.gamma.to(x.dtype)[None, :, None, None]
+
+
+class BatchNorm(nn.Module):
+    """Batch normalisation over the channels of NCHW maps, as flax computes it.
+
+    ``flax.linen.BatchNorm`` (the JAX SSD7's ``bn{i}``, with Keras' momentum
+    0.99 and epsilon 1e-3) differs from ``nn.BatchNorm2d`` in ways a parity
+    test sees:
+
+    * the batch variance is ``max(0, E[x^2] - E[x]^2)``, and the running
+      variance takes that *biased* value (``BatchNorm2d`` takes the unbiased
+      one);
+    * the running statistics move as ``momentum * ra + (1 - momentum) * stat``
+      (``BatchNorm2d``'s momentum is ``1 - momentum``);
+    * statistics and normalisation run in f32 under any compute dtype; the
+      output takes the input's dtype.
+
+    Parameters ``weight`` (flax ``scale``) and ``bias``; buffers
+    ``running_mean`` and ``running_var`` (flax ``batch_stats`` ``mean`` and
+    ``var``). ``self.training`` selects batch or running statistics.
+    """
+
+    def __init__(self, channels: int, momentum: float = 0.99, eps: float = 1e-3):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        if self.training:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
 
 
 def preprocess_input(
@@ -58,19 +104,26 @@ def preprocess_input(
     return x
 
 
+def fuse_head_params(conf_weight: torch.Tensor, loc_weight: torch.Tensor,
+                     conf_bias: torch.Tensor, loc_bias: torch.Tensor,
+                     dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The conf and loc heads' weights and biases concatenated along the
+    output channels (conf first) and cast to ``dtype``. The weights stay in
+    two modules under the reference names."""
+    return (torch.cat([conf_weight, loc_weight], dim=0).to(dtype),
+            torch.cat([conf_bias, loc_bias], dim=0).to(dtype))
+
+
 def fused_prediction_heads(
-    feat: torch.Tensor, conf: nn.Conv2d, loc: nn.Conv2d
+    feat: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, n_conf: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the 3x3 conf and loc heads of one feature map as a single conv.
 
-    The weights stay in two modules under the reference names; they are
-    concatenated along the output channels for one convolution, whose
-    per-channel results equal the two separate ones. Returns both maps
-    permuted to NHWC, the order the prediction tensor's boxes follow
+    ``weight`` and ``bias`` come from :func:`fuse_head_params`; the
+    convolution's per-channel results equal the two separate ones. Returns
+    the first ``n_conf`` channels (conf) and the rest (loc), both permuted
+    to NHWC, the order the prediction tensor's boxes follow
     (``models/common.py``).
     """
-    weight = torch.cat([conf.weight, loc.weight], dim=0)
-    bias = torch.cat([conf.bias, loc.bias], dim=0)
     out = F.conv2d(feat, weight, bias, padding=1).permute(0, 2, 3, 1)
-    n_conf = conf.out_channels
     return out[..., :n_conf], out[..., n_conf:]

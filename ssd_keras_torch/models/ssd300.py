@@ -16,8 +16,7 @@ Padding rules, from the flax module:
 
 from __future__ import annotations
 
-import math
-from typing import Dict, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,17 +25,14 @@ from torch import nn
 
 from ssd_keras_torch.config import SSDConfig
 from ssd_keras_torch.models.common import (
+    SSDModule,
     apply_mode,
     assemble_predictions,
+    init_weights,
     same_pool_size,
     valid_size,
-    validate_mode,
 )
-from ssd_keras_torch.models.layers import (
-    L2Normalization,
-    fused_prediction_heads,
-    preprocess_input,
-)
+from ssd_keras_torch.models.layers import L2Normalization, preprocess_input
 
 __all__ = ["SSD300", "ssd_300", "ssd300_predictor_sizes", "init_weights"]
 
@@ -101,22 +97,20 @@ def ssd300_predictor_sizes(img_height: int, img_width: int) -> List[Tuple[int, i
     return [conv4_3, fc7, conv6_2, conv7_2, conv8_2, conv9_2]
 
 
-class SSD300(nn.Module):
+class SSD300(SSDModule):
     """The SSD300 network. ``forward`` takes (B, H, W, 3) images and returns
     the mode-dependent output:
 
     * 'training': ``(batch, 8732, n_classes + 13)`` raw predictions (f32)
     * 'inference' / 'inference_fast': ``(batch, top_k, 6)`` decoded detections
 
-    Parameters are held in ``compute_dtype``; the anchors stay f32.
+    Parameters are f32; the convolutions run in ``compute_dtype``.
     """
 
     def __init__(self, config: SSDConfig, mode: str = "training",
                  compute_dtype: torch.dtype = torch.float32):
-        super().__init__()
-        self.config = config
-        self.mode = validate_mode(mode)
-        self.compute_dtype = compute_dtype
+        super().__init__(config, mode, compute_dtype,
+                         ssd300_predictor_sizes(config.img_height, config.img_width))
         for name, (cin, cout, k, kw) in _CONVS.items():
             self.add_module(name, nn.Conv2d(cin, cout, k, **kw))
         self.conv4_3_norm = L2Normalization(512)
@@ -125,33 +119,10 @@ class SSD300(nn.Module):
             self.add_module(f"{src}_mbox_conf",
                             nn.Conv2d(cin, n_boxes * n_classes, 3, padding=1))
             self.add_module(f"{src}_mbox_loc", nn.Conv2d(cin, n_boxes * 4, 3, padding=1))
-        sizes = ssd300_predictor_sizes(config.img_height, config.img_width)
-        self.anchors8 = config.anchor_tensor(sizes)  # (N, 8) float64 numpy
-        self._constants_by_device: Dict[torch.device, Dict[str, Optional[torch.Tensor]]] = {}
-
-    def _constants(self, device: torch.device) -> Dict[str, Optional[torch.Tensor]]:
-        """The anchors (f32) and preprocessing constants on ``device``,
-        uploaded once: a copy from the host in every forward would make the
-        host wait for the device each call."""
-        consts = self._constants_by_device.get(device)
-        if consts is None:
-            cfg = self.config
-
-            def upload(value, dtype):
-                return None if value is None else torch.tensor(value, dtype=dtype, device=device)
-
-            consts = dict(
-                anchors=upload(self.anchors8, torch.float32),
-                subtract_mean=upload(cfg.subtract_mean, torch.float32),
-                divide_by_stddev=upload(cfg.divide_by_stddev, torch.float32),
-                swap_channels=upload(cfg.swap_channels, torch.int64),
-            )
-            self._constants_by_device[device] = consts
-        return consts
 
     def _convs(self, x: torch.Tensor, names) -> torch.Tensor:
         for name in names:
-            x = F.relu(getattr(self, name)(x))
+            x = F.relu(self.conv(x, name))
         return x
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -187,30 +158,13 @@ class SSD300(nn.Module):
         )
         conf_maps, loc_maps = [], []
         for src, _ in _HEAD_SOURCES:
-            conf_map, loc_map = fused_prediction_heads(
-                features[src], getattr(self, f"{src}_mbox_conf"),
-                getattr(self, f"{src}_mbox_loc"),
-            )
+            conf_map, loc_map = self.heads(features[src], f"{src}_mbox_conf", f"{src}_mbox_loc")
             conf_maps.append(conf_map)
             loc_maps.append(loc_map)
         predictions = assemble_predictions(
             conf_maps, loc_maps, consts["anchors"], cfg.n_classes_with_background
         )
         return apply_mode(predictions, self.mode, cfg)
-
-
-def init_weights(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:
-    """He-normal conv kernels, zero biases (flax ``he_normal``: a normal
-    truncated at 2 std, std = sqrt(2 / fan_in) / 0.8796...), drawn from
-    ``generator``. L2Normalization keeps its gamma of 20."""
-    with torch.no_grad():
-        for m in module.modules():
-            if isinstance(m, nn.Conv2d):
-                fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
-                std = math.sqrt(2.0 / fan_in) / 0.87962566103423978
-                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
-                                      generator=generator)
-                nn.init.zeros_(m.bias)
 
 
 def ssd_300(
@@ -225,7 +179,8 @@ def ssd_300(
 
     Weights are drawn on the CPU from ``generator`` (a CPU
     ``torch.Generator``; the global one if None), so one seed gives the same
-    weights on every device, then moved and cast to ``compute_dtype``. With
+    weights on every device, then moved; they stay f32, and the forward
+    casts them to ``compute_dtype`` at use. With
     no ``config`` the canonical Pascal-VOC configuration is used;
     ``config_overrides`` go to :meth:`SSDConfig.ssd300`.
     """
@@ -235,6 +190,6 @@ def ssd_300(
         raise ValueError("Pass either a config or overrides, not both.")
     module = SSD300(config, mode=mode, compute_dtype=compute_dtype)
     init_weights(module, generator)
-    module.to(device=device, dtype=compute_dtype).eval()
+    module.to(device=device).eval()
     sizes = ssd300_predictor_sizes(config.img_height, config.img_width)
     return module, np.array(sizes)

@@ -1,8 +1,11 @@
-"""Axis-aligned box coordinate helpers (NumPy), vendored for the PyTorch port.
+"""Axis-aligned box coordinate helpers for the PyTorch port.
 
-The two functions the anchor generator and the decoder need, copied from
-``ssd_keras_tpu/ops/boxes.py`` with their NumPy path only, so that the port
-imports without JAX.
+``border_delta`` and ``convert_coordinates`` are vendored from
+``ssd_keras_tpu/ops/boxes.py``; ``convert_coordinates`` takes a NumPy array
+(the anchor generator) or a torch tensor (the target encoder), with one set
+of formulas for both. ``intersection_area`` and ``iou`` are the torch
+counterparts of the JAX functions of the same names, which the encoder runs
+on the device. Every step is one elementwise op, as in NumPy.
 
 Coordinate formats
 ------------------
@@ -17,8 +20,9 @@ difference): ``'half'`` -> 0, ``'include'`` -> +1, ``'exclude'`` -> -1.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-__all__ = ["border_delta", "convert_coordinates"]
+__all__ = ["border_delta", "convert_coordinates", "corner_indices", "intersection_area", "iou"]
 
 _CONVERSIONS = {
     "minmax2centroids",
@@ -41,12 +45,22 @@ def border_delta(border_pixels: str) -> int:
         )
 
 
+def corner_indices(coords: str):
+    """Return (xmin, ymin, xmax, ymax) index positions for a coordinate format."""
+    if coords == "corners":
+        return 0, 1, 2, 3
+    if coords == "minmax":
+        return 0, 2, 1, 3
+    raise ValueError(f"Expected 'corners' or 'minmax', got {coords!r}.")
+
+
 def convert_coordinates(tensor, start_index, conversion, border_pixels="half"):
     """Convert 4 consecutive box coordinates in the last axis between formats.
 
-    Returns a new array with the converted coordinates written over positions
-    ``start_index:start_index+4`` of the last axis; all other elements of the
-    last axis are preserved. Supports negative ``start_index``.
+    Returns a new array (a tensor for a tensor input) with the converted
+    coordinates written over positions ``start_index:start_index+4`` of the
+    last axis; all other elements of the last axis are preserved. Supports
+    negative ``start_index``.
     """
     if conversion not in _CONVERSIONS:
         raise ValueError(
@@ -54,7 +68,9 @@ def convert_coordinates(tensor, start_index, conversion, border_pixels="half"):
         )
     d = border_delta(border_pixels)
 
-    tensor = np.asarray(tensor)
+    is_torch = isinstance(tensor, torch.Tensor)
+    if not is_torch:
+        tensor = np.asarray(tensor)
     ind = start_index if start_index >= 0 else tensor.shape[-1] + start_index
     a = tensor[..., ind + 0]
     b = tensor[..., ind + 1]
@@ -72,6 +88,16 @@ def convert_coordinates(tensor, start_index, conversion, border_pixels="half"):
     else:  # minmax<->corners: swap the middle two coordinates
         out = (a, c, b, e)
 
+    if is_torch:
+        converted = torch.stack(out, dim=-1)
+        return torch.cat(
+            [
+                tensor[..., :ind].to(converted.dtype),
+                converted,
+                tensor[..., ind + 4 :].to(converted.dtype),
+            ],
+            dim=-1,
+        )
     converted = np.stack(out, axis=-1)
     return np.concatenate(
         [
@@ -81,3 +107,71 @@ def convert_coordinates(tensor, start_index, conversion, border_pixels="half"):
         ],
         axis=-1,
     )
+
+
+def _split_corners(boxes, coords):
+    xmin, ymin, xmax, ymax = corner_indices(coords)
+    return boxes[..., xmin], boxes[..., ymin], boxes[..., xmax], boxes[..., ymax]
+
+
+def _as_boxes(boxes1, boxes2, coords):
+    """Tensors with a leading box axis, in 'corners' or 'minmax' format."""
+    boxes1, boxes2 = torch.as_tensor(boxes1), torch.as_tensor(boxes2)
+    if boxes1.dim() == 1:
+        boxes1 = boxes1[None, :]
+    if boxes2.dim() == 1:
+        boxes2 = boxes2[None, :]
+    if coords == "centroids":
+        boxes1 = convert_coordinates(boxes1, 0, "centroids2corners")
+        boxes2 = convert_coordinates(boxes2, 0, "centroids2corners")
+        coords = "corners"
+    elif coords not in ("minmax", "corners"):
+        raise ValueError(
+            f"Unexpected value for `coords`: {coords!r}. "
+            "Supported: 'minmax', 'corners', 'centroids'."
+        )
+    return boxes1, boxes2, coords
+
+
+def _outer(mode, first, second):
+    """Broadcast per-box values of two sets against each other."""
+    if mode == "outer_product":
+        return [t[..., :, None] for t in first], [t[..., None, :] for t in second]
+    if mode != "element-wise":
+        raise ValueError(f"`mode` must be 'outer_product' or 'element-wise', got {mode!r}.")
+    return first, second
+
+
+def intersection_area(
+    boxes1, boxes2, coords="corners", mode="outer_product", border_pixels="half"
+):
+    """Intersection areas between two box sets (torch tensors).
+
+    ``mode='outer_product'``: boxes1 ``(..., m, 4)``, boxes2 ``(..., n, 4)``
+    -> ``(..., m, n)``. ``mode='element-wise'``: broadcast-compatible shapes
+    -> elementwise areas. ``coords`` may be 'corners', 'minmax', or
+    'centroids' (converted internally).
+    """
+    boxes1, boxes2, coords = _as_boxes(boxes1, boxes2, coords)
+    d = border_delta(border_pixels)
+    (x1a, y1a, x2a, y2a), (x1b, y1b, x2b, y2b) = _outer(
+        mode, _split_corners(boxes1, coords), _split_corners(boxes2, coords)
+    )
+    iw = torch.clamp_min(torch.minimum(x2a, x2b) - torch.maximum(x1a, x1b) + d, 0.0)
+    ih = torch.clamp_min(torch.minimum(y2a, y2b) - torch.maximum(y1a, y1b) + d, 0.0)
+    return iw * ih
+
+
+def iou(boxes1, boxes2, coords="centroids", mode="outer_product", border_pixels="half"):
+    """Jaccard (IoU) similarity between two box sets. See ``intersection_area``."""
+    boxes1, boxes2, coords = _as_boxes(boxes1, boxes2, coords)
+    # As in the JAX package (and its reference): the intersection always uses
+    # the 'half' convention, the union areas use ``border_pixels``.
+    inter = intersection_area(boxes1, boxes2, coords=coords, mode=mode, border_pixels="half")
+    d = border_delta(border_pixels)
+    x1a, y1a, x2a, y2a = _split_corners(boxes1, coords)
+    x1b, y1b, x2b, y2b = _split_corners(boxes2, coords)
+    (area1,), (area2,) = _outer(
+        mode, ((x2a - x1a + d) * (y2a - y1a + d),), ((x2b - x1b + d) * (y2b - y1b + d),)
+    )
+    return inter / (area1 + area2 - inter)

@@ -1,19 +1,24 @@
 """Weight conversion and Keras ``.h5`` import for the PyTorch models.
 
 * :func:`from_flax_params` / :func:`to_flax_params` convert between the JAX
-  package's flax parameter tree ``{layer: {"kernel", "bias" | "gamma"}}``
-  and a PyTorch ``state_dict``. Both sides use the reference's layer names;
-  the fused prediction heads keep theirs (``{src}_mbox_conf`` and
-  ``{src}_mbox_loc``), so every layer maps one to one. Conv kernels are HWIO
-  in flax and Keras, OIHW in PyTorch.
+  package's flax trees (``params`` ``{layer: {"kernel", "bias" | "gamma" |
+  "scale"}}`` and ``batch_stats`` ``{layer: {"mean", "var"}}``) and a
+  PyTorch ``state_dict``. Both sides use the reference's layer names; the
+  fused prediction heads keep theirs (``{src}_mbox_conf`` and
+  ``{src}_mbox_loc``, SSD7's ``classes{i}`` and ``boxes{i}``), so every
+  layer maps one to one. Conv kernels are HWIO in flax and Keras, OIHW in
+  PyTorch. A BatchNorm's ``scale`` is its ``weight``, its ``mean`` and
+  ``var`` its ``running_mean`` and ``running_var``.
 * :func:`load_keras_h5_weights` loads a reference Keras ``.h5`` weight file
   into a module by layer name, with the name rules of
-  ``ssd_keras_tpu/weights_io.py``. ``h5py`` is imported only there.
+  ``ssd_keras_tpu/weights_io.py`` (BatchNorm's ``gamma``, ``beta``,
+  ``moving_mean`` and ``moving_variance`` included). ``h5py`` is imported
+  only there.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,16 +26,25 @@ from torch import nn
 
 __all__ = ["from_flax_params", "to_flax_params", "load_keras_h5_weights"]
 
-# flax parameter name -> PyTorch parameter name, per layer.
-_FLAX_TO_TORCH = {"kernel": "weight", "bias": "bias", "gamma": "gamma"}
-_TORCH_TO_FLAX = {v: k for k, v in _FLAX_TO_TORCH.items()}
+Tree = Dict[str, Dict[str, np.ndarray]]
 
-# Keras h5 weight name -> flax parameter name (ssd_keras_tpu/weights_io.py).
-_KERAS_TO_FLAX = {"kernel": "kernel", "bias": "bias", "gamma": "gamma"}
+# flax name -> PyTorch name, per layer (``scale`` only on BatchNorm layers).
+_FLAX_TO_TORCH = {"kernel": "weight", "bias": "bias", "gamma": "gamma", "scale": "weight"}
+_STATS_TO_TORCH = {"mean": "running_mean", "var": "running_var"}
+_TORCH_TO_STATS = {v: k for k, v in _STATS_TO_TORCH.items()}
+
+# Keras h5 weight name -> flax name (ssd_keras_tpu/weights_io.py).
+_KERAS_TO_FLAX = {"kernel": "kernel", "bias": "bias", "gamma": "gamma",
+                  "beta": "beta", "moving_mean": "mean", "moving_variance": "var"}
+# BatchNorm statistics live in flax's `batch_stats` tree, not `params`.
+_BN_STATS = {"moving_mean", "moving_variance"}
+# Keras BatchNormalization's affine names vs flax.linen.BatchNorm's.
+_KERAS_BN_TO_FLAX = {"gamma": "scale", "beta": "bias"}
 
 
-def from_flax_params(params: Dict[str, Dict[str, np.ndarray]]) -> Dict[str, torch.Tensor]:
-    """flax ``params`` (as numpy arrays) -> PyTorch ``state_dict`` (CPU)."""
+def from_flax_params(params: Tree, batch_stats: Optional[Tree] = None) -> Dict[str, torch.Tensor]:
+    """flax ``params`` (and ``batch_stats``), as numpy arrays -> PyTorch
+    ``state_dict`` (CPU)."""
     state = {}
     for layer, tensors in params.items():
         for key, value in tensors.items():
@@ -42,21 +56,37 @@ def from_flax_params(params: Dict[str, Dict[str, np.ndarray]]) -> Dict[str, torc
                     raise ValueError(f"{layer}/kernel: expected HWIO, got {value.shape}")
                 value = value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
             state[f"{layer}.{_FLAX_TO_TORCH[key]}"] = torch.tensor(value)
+    for layer, tensors in (batch_stats or {}).items():
+        for key, value in tensors.items():
+            if key not in _STATS_TO_TORCH:
+                raise KeyError(f"unsupported flax batch statistic {layer}/{key}")
+            state[f"{layer}.{_STATS_TO_TORCH[key]}"] = torch.tensor(np.asarray(value))
     return state
 
 
-def to_flax_params(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Dict[str, np.ndarray]]:
-    """PyTorch ``state_dict`` -> flax ``params`` tree of f32 numpy arrays."""
-    params: Dict[str, Dict[str, np.ndarray]] = {}
+def to_flax_params(state_dict: Dict[str, torch.Tensor]) -> Tuple[Tree, Tree]:
+    """PyTorch ``state_dict`` -> flax ``(params, batch_stats)`` trees of f32
+    numpy arrays; ``batch_stats`` is empty for a model without BatchNorm."""
+    params: Tree = {}
+    stats: Tree = {}
     for name, tensor in state_dict.items():
         layer, _, key = name.rpartition(".")
-        if key not in _TORCH_TO_FLAX or not layer:
+        value = np.ascontiguousarray(tensor.detach().to("cpu", torch.float32).numpy())
+        is_bn = f"{layer}.running_mean" in state_dict
+        if key in _TORCH_TO_STATS and is_bn:
+            stats.setdefault(layer, {})[_TORCH_TO_STATS[key]] = value
+            continue
+        if not layer or key not in ("weight", "bias", "gamma"):
             raise KeyError(f"unsupported parameter {name}")
-        value = tensor.detach().to("cpu", torch.float32).numpy()
-        if key == "weight":
-            value = value.transpose(2, 3, 1, 0)  # OIHW -> HWIO
-        params.setdefault(layer, {})[_TORCH_TO_FLAX[key]] = np.ascontiguousarray(value)
-    return params
+        if key == "weight" and is_bn:
+            flax_key = "scale"
+        elif key == "weight":
+            flax_key = "kernel"
+            value = np.ascontiguousarray(value.transpose(2, 3, 1, 0))  # OIHW -> HWIO
+        else:
+            flax_key = key
+        params.setdefault(layer, {})[flax_key] = value
+    return params, stats
 
 
 def _layer_groups(f):
@@ -103,31 +133,38 @@ def load_keras_h5_weights(
     """Load a Keras ``.h5`` weight file into ``model`` in place, by layer name.
 
     Layers in the file but not in the model are skipped (Keras
-    ``load_weights(by_name=True)``), and vice versa. A dataset of a matched
-    layer that maps onto no parameter is almost always a porting bug, so it
-    warns by default (``on_unconsumed`` in {'warn', 'raise', 'ignore'}); a
-    shape mismatch raises. Returns the names of the layers loaded.
+    ``load_weights(by_name=True)``), and vice versa. BatchNorm layers take
+    ``gamma``, ``beta``, ``moving_mean`` and ``moving_variance``. A dataset of
+    a matched layer that maps onto no parameter is almost always a porting
+    bug, so it warns by default (``on_unconsumed`` in {'warn', 'raise',
+    'ignore'}); a shape mismatch raises. Returns the names of the layers
+    loaded.
     """
     import h5py
 
-    params = to_flax_params(model.state_dict())
+    params, stats = to_flax_params(model.state_dict())
     loaded, unconsumed = [], []
     with h5py.File(h5_path, "r") as f:
         for name, datasets in _layer_groups(f):
-            dest = params.get(name)
-            if dest is None:
+            target_p, target_s = params.get(name), stats.get(name)
+            if target_p is None and target_s is None:
                 continue
             for ds_name, value in datasets.items():
                 key = _weight_key(ds_name, name)
-                if key not in dest:
+                flax_key = _KERAS_TO_FLAX.get(key, key)
+                dest = target_s if key in _BN_STATS else target_p
+                if target_s is not None and key in _KERAS_BN_TO_FLAX:
+                    # A BatchNorm's gamma/beta; L2Normalization keeps 'gamma'.
+                    flax_key = _KERAS_BN_TO_FLAX[key]
+                if dest is None or flax_key not in dest:
                     unconsumed.append(f"{name}/{ds_name}")
                     continue
-                if dest[key].shape != value.shape:
+                if dest[flax_key].shape != value.shape:
                     raise ValueError(
-                        f"Shape mismatch for {name}/{key}: "
-                        f"checkpoint {value.shape} vs model {dest[key].shape}."
+                        f"Shape mismatch for {name}/{flax_key}: "
+                        f"checkpoint {value.shape} vs model {dest[flax_key].shape}."
                     )
-                dest[key] = value.astype(dest[key].dtype)
+                dest[flax_key] = value.astype(dest[flax_key].dtype)
             loaded.append(name)
     if unconsumed and on_unconsumed != "ignore":
         msg = (
@@ -140,5 +177,5 @@ def load_keras_h5_weights(
         import warnings
 
         warnings.warn(msg, stacklevel=2)
-    model.load_state_dict(from_flax_params(params))
+    model.load_state_dict(from_flax_params(params, stats))
     return loaded

@@ -1,4 +1,5 @@
-"""The port on a CUDA card: the kernel against its plain version.
+"""The port on a CUDA card: the kernel against its plain version, and the
+training slice (encode, train step, BatchNorm) against the CPU.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither JAX nor the JAX package, so it also runs on a machine with
@@ -11,8 +12,11 @@ import numpy as np
 import pytest
 import torch
 
-from ssd_keras_torch import SSDConfig, SSDPredictor, ssd_300
+from ssd_keras_torch import SSDConfig, SSDInputEncoder, SSDLoss, SSDPredictor, ssd_7, ssd_300
+from ssd_keras_torch import train as T
+from ssd_keras_torch.data import SynthVOC
 from ssd_keras_torch.decoder import decode_detections_fast_fixed, decode_detections_fixed
+from ssd_keras_torch.encoder import pad_labels
 from ssd_keras_torch.kernels import nms as nms_kernel
 from ssd_keras_torch.models import ssd300_predictor_sizes
 from ssd_keras_torch.ops.nms import greedy_nms_mask
@@ -105,3 +109,131 @@ def test_predictor_serves_on_card(cuda):
     assert len(out) == 3
     for dets in out:
         assert dets.shape[1] == 6 and len(dets) > 0 and np.isfinite(dets).all()
+
+
+# Card-vs-CPU tolerances of the training slice (as chip_smoke.py states
+# them): encoded offsets within an ulp-level 1e-5 (``log`` and division);
+# one f32 step (TF32 off) with the loss within 1e-4 relative and every
+# parameter within 1e-2 of the step's largest update (y_pred differs by
+# ~1e-5 between the devices, and the gradients carry the same noise).
+OFFSET_TOL = 1e-5
+STEP_LOSS_RTOL = 1e-4
+STEP_PARAM_TOL = 1e-2
+
+
+@pytest.fixture()
+def no_tf32():
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _synthvoc(n, max_gt=8):
+    """n SynthVOC train images at 300x300 (uint8) and their padded labels."""
+    images, labels = SynthVOC(n, image_size=300, seed=0).materialize()
+    padded, counts = pad_labels(labels, max_gt)
+    return images, padded, counts
+
+
+def _seeded_ssd300_state():
+    """Seeded SSD300 weights, conv1_1 x 1/100 and loc heads x 1/4 (see
+    chip_smoke.seeded_state)."""
+    model, _ = ssd_300(SSDConfig.ssd300(), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.conv1_1.weight.mul_(0.01)
+        for name, module in model.named_children():
+            if name.endswith("_mbox_loc"):
+                module.weight.mul_(0.25)
+    return model.state_dict()
+
+
+def _step(build, state, x, y, device, dtype=torch.float32):
+    model, _ = build(compute_dtype=dtype, device=device)
+    model.load_state_dict(state)
+    opt = T.sgd_with_momentum(model.parameters(), 1e-3, 0.9, clipnorm=5.0)
+    metrics = T.make_train_step(model, opt, SSDLoss(), l2_reg=5e-4)(x.to(device), y.to(device))
+    return float(metrics["loss"]), model.state_dict()
+
+
+def _assert_steps_close(state, cpu, card):
+    (loss_cpu, after_cpu), (loss_card, after_card) = cpu, card
+    assert abs(loss_card - loss_cpu) <= STEP_LOSS_RTOL * abs(loss_cpu)
+    update = max(float((after_cpu[k] - state[k]).abs().max()) for k in state)
+    for k in state:
+        torch.testing.assert_close(after_card[k].cpu(), after_cpu[k], rtol=0,
+                                   atol=STEP_PARAM_TOL * update, msg=k)
+
+
+def test_encode_on_card_equals_cpu(cuda):
+    cfg = SSDConfig.ssd300()
+    sizes = ssd300_predictor_sizes(300, 300)
+    _, padded, counts = _synthvoc(8)
+    got = SSDInputEncoder(cfg, sizes, max_gt_boxes=8, device=cuda).encode_padded(
+        torch.from_numpy(padded).to(cuda), torch.from_numpy(counts).to(cuda))
+    assert got.device.type == "cuda" and got.shape == (8, 8732, 33)
+    expected = SSDInputEncoder(cfg, sizes, max_gt_boxes=8).encode_padded(padded, counts)
+    got = got.cpu()
+    assert torch.equal(got[..., :21], expected[..., :21])
+    assert torch.equal(got[..., -8:], expected[..., -8:])
+    torch.testing.assert_close(got[..., -12:-8], expected[..., -12:-8], rtol=0, atol=OFFSET_TOL)
+    assert int(expected[..., 1:21].sum()) >= int(counts.sum())
+
+
+def test_ssd300_sgd_step_on_card_matches_cpu(cuda, no_tf32):
+    images, padded, counts = _synthvoc(2)
+    cfg = SSDConfig.ssd300()
+    y = SSDInputEncoder(cfg, ssd300_predictor_sizes(300, 300), max_gt_boxes=8).encode_padded(
+        padded, counts)
+    x = torch.from_numpy(images.astype(np.float32))
+    state = _seeded_ssd300_state()
+
+    def build(**kw):
+        return ssd_300(cfg, **kw)
+
+    _assert_steps_close(state, _step(build, state, x, y, "cpu"), _step(build, state, x, y, cuda))
+
+
+def test_train_step_with_encode_makes_no_host_sync(cuda):
+    images, padded, counts = _synthvoc(4)
+    cfg = SSDConfig.ssd300()
+    encoder = SSDInputEncoder(cfg, ssd300_predictor_sizes(300, 300), max_gt_boxes=8, device=cuda)
+    model, _ = ssd_300(cfg, compute_dtype=torch.bfloat16, device=cuda,
+                       generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.conv1_1.weight.mul_(0.01)
+    opt = T.sgd_with_momentum(model.parameters(), T.linear_warmup_lr(1e-4, 8), 0.9, clipnorm=5.0)
+    step = T.make_train_step(model, opt, SSDLoss(), l2_reg=5e-4)
+    x = torch.from_numpy(images).to(cuda)
+    p, c = torch.from_numpy(padded).to(cuda), torch.from_numpy(counts).to(cuda)
+    step(x, encoder.encode_padded(p, c))  # warm-up: constants, momentum buffers
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics = step(x, encoder.encode_padded(p, c))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(metrics["loss"]) and metrics["loss"].device.type == "cuda"
+    assert all(q.dtype == torch.float32 for q in model.parameters())
+
+
+def test_ssd7_batchnorm_statistics_card_equals_cpu(cuda, no_tf32):
+    """SSD7 trains with batch statistics and moves its running statistics
+    the flax way: the same on the card as on the CPU."""
+    cfg = SSDConfig.ssd7(n_classes=3, img_height=64, img_width=64)
+    model, sizes = ssd_7(cfg, generator=torch.Generator().manual_seed(0))
+    state = model.state_dict()
+    rng = np.random.RandomState(0)
+    labels = [np.array([[1 + i % 3, 5.5 + i, 7.25, 40.5, 50.0 - i]]) for i in range(4)]
+    y = torch.from_numpy(SSDInputEncoder(cfg, sizes, max_gt_boxes=4)(labels))
+    x = torch.from_numpy(rng.rand(4, 64, 64, 3).astype(np.float32) * 255)
+
+    def build(**kw):
+        return ssd_7(cfg, **kw)
+
+    cpu, card = _step(build, state, x, y, "cpu"), _step(build, state, x, y, cuda)
+    _assert_steps_close(state, cpu, card)
+    for k in state:
+        if k.endswith(("running_mean", "running_var")):
+            assert not torch.equal(cpu[1][k], state[k]), k  # they moved
+            torch.testing.assert_close(card[1][k].cpu(), cpu[1][k], rtol=1e-4, atol=1e-6, msg=k)

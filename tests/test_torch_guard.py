@@ -17,7 +17,10 @@ REPO = Path(__file__).resolve().parent.parent
 
 def test_import_needs_neither_jax_nor_the_jax_package():
     code = (
-        "import sys, ssd_keras_torch\n"
+        "import importlib, pkgutil, sys, ssd_keras_torch\n"
+        "for m in pkgutil.walk_packages(ssd_keras_torch.__path__, 'ssd_keras_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "assert 'ssd_keras_torch.train' in sys.modules\n"
         "bad = {'jax', 'flax', 'ssd_keras_tpu', 'h5py', 'PIL', 'triton'} & set(sys.modules)\n"
         "assert not bad, bad\n"
     )

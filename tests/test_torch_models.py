@@ -23,7 +23,7 @@ from ssd_keras_tpu.models import ssd_300 as jax_ssd_300
 from ssd_keras_tpu.models import ssd300_predictor_sizes as jax_sizes
 from ssd_keras_tpu.models.common import assemble_predictions as jax_assemble
 from ssd_keras_torch.config import SSDConfig
-from ssd_keras_torch.models import layers, ssd_300, ssd300_predictor_sizes
+from ssd_keras_torch.models import layers, ssd_7, ssd_300, ssd300_predictor_sizes
 from ssd_keras_torch.models.common import assemble_predictions, validate_mode
 from ssd_keras_torch.weights_io import from_flax_params, to_flax_params
 
@@ -67,7 +67,8 @@ def test_flax_conversion_round_trips(ssd300_shared):
     model.load_state_dict(state)  # strict: every key and shape matches
     assert state["fc6.weight"].shape == (1024, 512, 3, 3)
     assert state["conv4_3_norm.gamma"].shape == (512,)
-    back = to_flax_params(model.state_dict())
+    back, stats = to_flax_params(model.state_dict())
+    assert stats == {}  # SSD300 has no BatchNorm
     assert set(back) == set(params)
     for layer, tensors in params.items():
         assert set(back[layer]) == set(tensors)
@@ -137,8 +138,10 @@ def test_fused_prediction_heads_match_flax():
     conf.load_state_dict({"weight": state["fc7_mbox_conf.weight"], "bias": state["fc7_mbox_conf.bias"]})
     loc.load_state_dict({"weight": state["fc7_mbox_loc.weight"], "bias": state["fc7_mbox_loc.bias"]})
     with torch.no_grad():
+        weight, bias = layers.fuse_head_params(conf.weight, loc.weight, conf.bias, loc.bias,
+                                               torch.float32)
         got_conf, got_loc = layers.fused_prediction_heads(
-            torch.from_numpy(feat).permute(0, 3, 1, 2), conf, loc
+            torch.from_numpy(feat).permute(0, 3, 1, 2), weight, bias, conf.out_channels
         )
     np.testing.assert_allclose(got_conf.numpy(), exp_conf, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(got_loc.numpy(), exp_loc, rtol=1e-5, atol=1e-5)
@@ -180,3 +183,81 @@ def test_seeded_init_is_reproducible_across_builds():
     for (name, pa), pb in zip(a.state_dict().items(), b.state_dict().values()):
         assert torch.equal(pa, pb), name
     assert torch.all(a.conv4_3_norm.gamma == 20.0)
+
+
+def _ssd7_bf16(seed):
+    model, _ = ssd_7(SSDConfig.ssd7(n_classes=3, img_height=64, img_width=64),
+                     compute_dtype=torch.bfloat16, generator=torch.Generator().manual_seed(seed))
+    return model
+
+
+def _sgd_step(model, x):
+    opt = torch.optim.SGD(model.parameters(), lr=0.1)
+    with torch.enable_grad():
+        model(x)[..., :4].square().mean().backward()
+    opt.step()
+
+
+def _load_other(model, x):
+    model.load_state_dict(_ssd7_bf16(seed=1).state_dict())
+
+
+@pytest.mark.parametrize("change", [_sgd_step, _load_other], ids=["sgd_step", "load_state_dict"])
+def test_serving_reuses_cast_weights_until_they_change(change):
+    """Without autograd the bf16 copies of the f32 weights are made once and
+    reused; an update in place or a load makes them again. Each no-grad
+    output equals the one that casts at use (under autograd)."""
+    model = _ssd7_bf16(seed=0)
+    x = torch.from_numpy(np.random.RandomState(0).rand(2, 64, 64, 3).astype(np.float32) * 255)
+
+    def uncached():
+        with torch.enable_grad():
+            return model(x).detach()
+
+    with torch.no_grad():
+        first = model(x)
+        copies = {k: v[2] for k, v in model._cast_cache.items()}
+        again = model(x)
+    assert len(copies) == 7 + 4  # the convs and the fused heads
+    assert all(model._cast_cache[k][2] is v for k, v in copies.items())
+    assert all(w.dtype == torch.bfloat16 for w, _ in copies.values())
+    assert torch.equal(first, again) and torch.equal(first, uncached())
+
+    change(model, x)
+    with torch.inference_mode():  # the predictor's mode
+        served = model(x)
+    with torch.no_grad():
+        after = model(x)
+    assert all(model._cast_cache[k][2] is not v for k, v in copies.items())
+    assert torch.equal(served, after) and torch.equal(after, uncached())
+    assert not torch.equal(after, first)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+
+
+def test_bf16_compute_keeps_f32_master_weights():
+    """Parameters stay f32 under bf16 compute, as flax keeps them: an SGD
+    update of lr * g at lr 1e-4 moves the f32 weights, where most of it is
+    below half a bf16 ulp and a bf16 copy of the weights would not move."""
+    from ssd_keras_torch.loss import SSDLoss
+    from ssd_keras_torch.train import make_train_step, sgd_with_momentum
+
+    model, _ = ssd_300(SSDConfig.ssd300(n_classes=20), compute_dtype=torch.bfloat16,
+                       generator=torch.Generator().manual_seed(0))
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    with torch.no_grad():
+        model.conv1_1.weight.mul_(0.01)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    x = torch.from_numpy(np.random.RandomState(0).rand(1, 300, 300, 3).astype(np.float32) * 255)
+    y_true = torch.zeros(1, 8732, 33)
+    y_true[..., 0] = 1.0
+    y_true[0, ::97, 0], y_true[0, ::97, 7] = 0.0, 1.0  # 91 positives
+    y_true[..., -8:] = torch.from_numpy(model.anchors8).float()
+    opt = sgd_with_momentum(model.parameters(), learning_rate=1e-4, momentum=0.9)
+    metrics = make_train_step(model, opt, SSDLoss(), l2_reg=5e-4)(x, y_true)
+    assert torch.isfinite(metrics["loss"])
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    w_old, w_new = before["fc7.weight"], model.fc7.weight.detach()
+    moved = w_new != w_old
+    bf16_stuck = (w_old.bfloat16().float() + (w_new - w_old)).bfloat16() == w_old.bfloat16()
+    assert moved.float().mean() > 0.9
+    assert (moved & bf16_stuck).float().mean() > 0.5
