@@ -34,6 +34,24 @@ Phases, in order; the first failure raises and the script exits non-zero:
    serve through 'inference' mode and the NMS kernel. Timings: the train
    step's img/s at batch 32 (bf16, images and targets on the card) and the
    encode of a batch of 32.
+8. Data-parallel training with the on-device input pipeline, SSD300 VOC at
+   full width: (a) ``DeviceSSDAugmentation`` on the card equals the CPU
+   given the same draws (batch 32 of 300x300 SynthVOC, max_gt 32, some
+   views forced to expand off the image and to flip); (b) under a real NCCL
+   process group of one rank (a ``FileStore`` in a temporary directory), a
+   resident uint8 dataset of 256 images is gathered -> augmented -> encoded
+   -> stepped at batch 32 in bf16 by ``Trainer.fit_generator`` with a mesh
+   (checkpoint, CSV, restore), with finite losses and one step, with its
+   gather, augment and encode, making no host synchronisation; each rank's
+   'inference' decode launches the NMS kernel; (c) ``StreamingDeviceInput``
+   over the same host rows and seed yields the direct path's images and
+   targets bit for bit and feeds the step; (d) two spawned gloo ranks on the
+   one card, global batch 8, f32: one DP SGD step equals the one-process
+   step, and each rank's decode of its 4 images launches the NMS kernel and
+   gathers into the one-process decode. Timings: the augment + encode of a
+   batch of 32, and the resident and streamed train img/s beside the DP step
+   and the plain step on batches already on the card (the plain, DP and
+   resident steps interleaved in rounds).
 
 It prints JSON lines (timings, then the kernels line), then as its last line
 ``{"ok": true, "device": {...}}``. With no CUDA device it raises before
@@ -51,15 +69,22 @@ import time
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from ssd_keras_torch import SSDConfig, SSDInputEncoder, SSDLoss, SSDPredictor, ssd_300
 from ssd_keras_torch import train as T
 from ssd_keras_torch.data import SynthVOC
+from ssd_keras_torch.data.device_aug import DeviceSSDAugmentation, batch_seed, geometry_from_draws
+from ssd_keras_torch.data.streaming import StreamingDeviceInput
 from ssd_keras_torch.decoder import decode_detections_fixed
 from ssd_keras_torch.encoder import pad_labels
 from ssd_keras_torch.kernels import build
 from ssd_keras_torch.kernels import nms as nms_kernel
 from ssd_keras_torch.models import ssd300_predictor_sizes
 from ssd_keras_torch.ops.nms import greedy_nms_mask
+from ssd_keras_torch.parallel import sharding as sh
+from ssd_keras_torch.parallel.dryrun import dp_check_rank
+from ssd_keras_torch.parallel.launch import run_ranks
 
 SEED = 0
 BATCH = 8
@@ -100,6 +125,26 @@ STEP_PARAM_TOL = 1e-2  # of the step's largest update
 RESTORE_TOL = 1e-6
 # Interleaved rounds of the bf16 weight-cast A/B (phase 6).
 CAST_AB_ROUNDS = 20
+# Phase 8: the input pipeline at batch 32 with up to 32 boxes an image, a
+# resident dataset of 256 SynthVOC images, and two ranks at global batch 8.
+AUG_BATCH = 32
+AUG_MAX_GT = 32
+RESIDENT_IMAGES = 256
+DP_EPOCHS = 2
+DP_STEPS_PER_EPOCH = 4
+DP_RANKS = 2
+DP_BATCH = 8
+DP_TIMEOUT_S = 600
+# Interleaved rounds of the plain, DP and resident steps (phase 8 timings).
+STEP_ROUNDS = 8
+# Augmentation card vs CPU with the same draws. Each elementwise f32 op
+# rounds alike on both devices; the weight normalisation's sums and the two
+# batched matmuls (TF32 off) add in other orders, a few ulps of 255. An ulp
+# of a sample position would move a pixel by up to ~0.03 (an ulp of ~1000 px
+# times a step of 255 between neighbours), so agreement within 1e-2 also
+# says the positions are equal. Boxes take a few f32 multiplies and adds.
+AUG_PIXEL_TOL = 1e-2
+AUG_BOX_TOL = 1e-3
 
 
 def log(msg):
@@ -402,6 +447,271 @@ def train_phase(state, device, card):
     ]
 
 
+def aug_card_vs_cpu(images, padded, counts, device):
+    """Phase 8a: the augmentation of one batch on the card and on the CPU
+    from the same draws, some views forced to expand and to flip."""
+    n = AUG_BATCH
+    aug = DeviceSSDAugmentation(300, 300)
+    draws = aug.draw(SEED, n, device)
+    idx = torch.arange(n, device=device)
+    geom = draws.geometry._replace(expand=draws.geometry.expand | (idx % 4 == 0),
+                                   flip=draws.geometry.flip | (idx % 2 == 0))
+    draws = draws._replace(geometry=geom)
+    x, p, c = images[:n], padded[:n], counts[:n]
+    card = [t.cpu() for t in aug.apply(draws, torch.from_numpy(x).to(device),
+                                       torch.from_numpy(p).to(device),
+                                       torch.from_numpy(c).to(device))]
+    cpu_draws = draws.to("cpu")
+    cpu = aug.apply(cpu_draws, torch.from_numpy(x), torch.from_numpy(p), torch.from_numpy(c))
+    rect, flip = geometry_from_draws(cpu_draws.geometry, torch.from_numpy(p[..., 1:5]),
+                                     torch.from_numpy(c).long(), 300, 300)
+    off_image = int(((rect[:, :2] < 0).any(1) | (rect[:, 2:] > 300).any(1)).sum())
+    pixel_err = float((card[0] - cpu[0]).abs().max())
+    if not torch.equal(card[2], cpu[2]):
+        raise AssertionError(f"augmentation: kept-box counts differ, card {card[2].tolist()} "
+                             f"vs CPU {cpu[2].tolist()}")
+    if not torch.equal(card[1][..., 0], cpu[1][..., 0]):
+        raise AssertionError("augmentation: class columns differ between the card and the CPU")
+    box_err = float((card[1][..., 1:] - cpu[1][..., 1:]).abs().max())
+    log(f"augmentation batch {n} card vs CPU, same draws: max |pixel diff| {pixel_err:.3g} "
+        f"(limit {AUG_PIXEL_TOL}), max |box diff| {box_err:.3g} px (limit {AUG_BOX_TOL}), "
+        f"counts equal ({int(cpu[2].sum())} boxes kept of {int(c.sum())}); {off_image} views "
+        f"off the image, {int(flip.sum())} flipped")
+    if pixel_err > AUG_PIXEL_TOL or box_err > AUG_BOX_TOL:
+        raise AssertionError("augmentation on the card differs from the CPU")
+    if off_image == 0 or not bool(flip.any()):
+        raise AssertionError("the forced expand and flip cases did not occur")
+
+
+def dp_two_ranks(state, images, y_true, device):
+    """Phase 8d: two gloo ranks on the one card against one process."""
+    x = images[:DP_BATCH].astype(np.float32)
+    y = y_true[:DP_BATCH]
+    spec = dict(arch="ssd300", config={}, device="cuda",
+                state={k: v.numpy() for k, v in state.items()}, images=x, y_true=y,
+                lr=1e-3, l2=L2_REG, clipnorm=5.0, decode="model")
+    t0 = time.perf_counter()
+    ranks = run_ranks(dp_check_rank, DP_RANKS, (spec,), timeout=DP_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    loss_one, after_one = sgd_step(state, torch.from_numpy(x), torch.from_numpy(y), device)
+    update = max(float((after_one[k].cpu() - state[k]).abs().max()) for k in state)
+    launches = [r["nms_launches"] for r in ranks]
+    for r in ranks:
+        loss_rel = abs(r["loss"] - loss_one) / abs(loss_one)
+        param_err = max(float(np.abs(r["state"][k] - after_one[k].cpu().numpy()).max())
+                        for k in state)
+        log(f"DP step, rank {r['rank']} of {DP_RANKS} (gloo, one card) vs one process: loss "
+            f"{r['loss']:.6f} vs {loss_one:.6f} (rel {loss_rel:.3g}, limit {STEP_LOSS_RTOL}); "
+            f"max |param diff| {param_err / update:.3g} of the largest update (limit "
+            f"{STEP_PARAM_TOL})")
+        if not (loss_rel <= STEP_LOSS_RTOL and param_err <= STEP_PARAM_TOL * update):
+            raise AssertionError("the two-rank DP step differs from the one-process step")
+    with torch.no_grad():
+        one = model_for(state, "inference", torch.float32, device)(
+            torch.from_numpy(x).to(device)).cpu().numpy()
+    for r in ranks:
+        compare_detections(f"DP decode rank {r['rank']}: {DP_BATCH // DP_RANKS} images a "
+                           "rank, gathered, vs one process", r["detections"], one, SCORE_TOL,
+                           BOX_TOL)
+    log(f"DP decode NMS launches by rank: {launches}; {DP_RANKS} ranks ran in {spawn_s:.1f} s "
+        "(host clock, spawn included)")
+    if min(launches) < 1:
+        raise AssertionError("a rank's decode did not launch the NMS kernel")
+    return launches
+
+
+def dp_phase(state, device, card, step_ms_phase7):
+    """Phase 8. Returns (timing lines, the NMS launches of the DP decode
+    paths)."""
+    cfg = SSDConfig.ssd300()
+    sizes = ssd300_predictor_sizes(300, 300)
+    b = AUG_BATCH
+    images, labels = SynthVOC(RESIDENT_IMAGES, image_size=300, split="train",
+                              seed=SEED).materialize()
+    padded, counts = pad_labels(labels, AUG_MAX_GT)
+
+    # (a) The augmentation, card against CPU.
+    aug_card_vs_cpu(images, padded, counts, device)
+
+    # (b) The resident pipeline under a real NCCL process group of one rank.
+    store_dir = tempfile.TemporaryDirectory()
+    sh.initialize_distributed("nccl", 1, 0,
+                              store=dist.FileStore(os.path.join(store_dir.name, "store"), 1))
+    try:
+        mesh = sh.make_mesh("cuda")
+        resident = [sh.upload_sharded(a, mesh, device) for a in (images, padded, counts)]
+        aug = DeviceSSDAugmentation(300, 300, mesh=mesh)
+        enc = SSDInputEncoder(cfg, sizes, max_gt_boxes=AUG_MAX_GT, device=device)
+        order = np.random.RandomState(SEED).permutation(RESIDENT_IMAGES)
+        per_epoch = RESIDENT_IMAGES // b
+
+        def rows(i):
+            return order[(i % per_epoch) * b:(i % per_epoch + 1) * b]
+
+        def resident_batch(i):
+            x, p, c = sh.exchange_rows(resident, rows(i), mesh)
+            a_x, a_p, a_c = aug(batch_seed(SEED, i), x, p, c)
+            return a_x, enc.encode_padded(a_p, a_c)
+
+        def resident_batches():
+            i = 0
+            while True:
+                yield resident_batch(i)
+                i += 1
+
+        def dp_trainer():
+            model = model_for(state, "training", torch.bfloat16, device)
+            opt = T.sgd_with_momentum(model.parameters(),
+                                      T.linear_warmup_lr(BASE_LR, WARMUP_STEPS), 0.9, clipnorm=5.0)
+            step = T.make_train_step(model, opt, SSDLoss(), l2_reg=L2_REG, mesh=mesh)
+            return T.Trainer(model, opt, step, base_lr=BASE_LR, mesh=mesh)
+
+        trainer = dp_trainer()
+        with tempfile.TemporaryDirectory() as ckpt_dir:
+            csv_path = os.path.join(ckpt_dir, "log.csv")
+            history = trainer.fit_generator(
+                resident_batches(), steps_per_epoch=DP_STEPS_PER_EPOCH, epochs=DP_EPOCHS,
+                callbacks=[T.CSVLogger(csv_path), T.TerminateOnNaN(),
+                           T.ModelCheckpoint(ckpt_dir, monitor="loss", save_best_only=False)],
+                verbose=False)
+            losses = history["loss"]
+            with open(csv_path) as f:
+                csv_rows = f.read().strip().splitlines()
+            restored = dp_trainer()
+            restored.restore_checkpoint(os.path.join(ckpt_dir, f"ckpt_{DP_EPOCHS - 1}.pt"))
+        log(f"DP resident pipeline (NCCL, 1 rank): gather -> augment -> encode -> bf16 step, "
+            f"batch {b}, {trainer.step} steps, epoch losses {[round(v, 4) for v in losses]}")
+        if len(losses) != DP_EPOCHS or not all(np.isfinite(losses)) or trainer.terminated_on_nan:
+            raise AssertionError(f"DP training stopped or diverged: {losses}")
+        if len(csv_rows) != DP_EPOCHS + 1 or restored.step != trainer.step:
+            raise AssertionError(f"DP Trainer: CSV {csv_rows}, restored step {restored.step}")
+        for k, v in restored.module.state_dict().items():
+            if not torch.equal(v, trainer.module.state_dict()[k]):
+                raise AssertionError(f"DP checkpoint: {k} differs after the restore")
+
+        step = trainer.train_step
+        i_sync = trainer.step
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step(*resident_batch(i_sync))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        log("DP step with its gather, augment and encode: no host synchronisation "
+            "(torch.cuda sync debug mode 'error')")
+
+        # Each rank decodes its rows in 'inference' mode; the detections gathered.
+        server = model_for(state, "inference", torch.float32, device)
+        x8 = torch.from_numpy(images[:DP_BATCH]).to(device)
+        nms_kernel.launches = 0
+        with torch.no_grad():
+            dets = sh.global_batch_from_local(server(x8), mesh)
+        torch.cuda.synchronize()
+        nccl_launches = nms_kernel.launches
+        if dets.shape != (DP_BATCH, 200, 6) or nccl_launches < 1:
+            raise AssertionError(f"DP decode (NCCL): shape {tuple(dets.shape)}, "
+                                 f"{nccl_launches} NMS launches")
+        check_in_frame("DP decode (NCCL)", dets[dets[..., 1] > 0].cpu().numpy(), 300, 300, 20)
+        log(f"DP decode (NCCL, 1 rank): {int((dets[..., 1] > 0).sum())} detections, NMS "
+            f"launches {nccl_launches}")
+
+        # (c) Streamed against the direct path, on the same host rows and seed.
+        n_stream = 3
+        host = [(images[rows(i)], padded[rows(i)], counts[rows(i)]) for i in range(n_stream)]
+        stream = StreamingDeviceInput(iter(host), aug, enc, seed=SEED)
+        n_seen = 0
+        for i, (s_x, s_y) in enumerate(stream):
+            gathered = sh.exchange_rows(resident, rows(i), mesh)
+            direct = [torch.from_numpy(a).to(device) for a in host[i]]
+            if not all(torch.equal(g, d) for g, d in zip(gathered, direct)):
+                raise AssertionError(f"resident gather of batch {i} != its host rows")
+            a_x, a_p, a_c = aug(batch_seed(SEED, i), *direct)
+            if not (torch.equal(s_x, a_x) and torch.equal(s_y, enc.encode_padded(a_p, a_c))):
+                raise AssertionError(f"streamed batch {i} differs from the direct path")
+            loss = float(step(s_x, s_y)["loss"])
+            if not np.isfinite(loss):
+                raise AssertionError(f"non-finite loss {loss} from a streamed batch")
+            n_seen += 1
+        if n_seen != n_stream:
+            raise AssertionError(f"the stream yielded {n_seen} of {n_stream} batches")
+        log(f"streamed == direct augment + encode, bit for bit, {n_stream} batches of {b}; "
+            f"each fed the DP step (last loss {loss:.4f})")
+
+        # Timings. The plain step (phase 7's, no mesh), the DP step on a
+        # batch already on the card and the resident DP step, interleaved in
+        # rounds: each process's host runs at its own pace, so only steps
+        # timed side by side compare.
+        x, p, c = sh.exchange_rows(resident, rows(0), mesh)
+        aug_ms = summary(time_cuda(
+            lambda: enc.encode_padded(*aug(batch_seed(SEED, 0), x, p, c)[1:]), iters=10))
+        on_card = resident_batch(0)
+        plain = bf16_trainer(state, device).train_step
+        counter = iter(range(10 ** 6))
+        variants = {"plain": lambda: plain(*on_card), "dp": lambda: step(*on_card),
+                    "resident": lambda: step(*resident_batch(next(counter)))}
+        runs = {name: [] for name in variants}
+        for _ in range(STEP_ROUNDS):
+            for name, fn in variants.items():
+                runs[name] += time_cuda(fn, iters=5, repeats=1, warmup=1)
+        plain_ms, step_ms, resident_ms = (summary(runs[k]) for k in ("plain", "dp", "resident"))
+        dp_cost = [d - q for d, q in zip(runs["dp"], runs["plain"])]
+        log(f"DP step vs plain step, {STEP_ROUNDS} interleaved rounds of 5 steps: median "
+            f"{statistics.median(dp_cost):+.2f} ms a step, DP slower in "
+            f"{sum(d > 0 for d in dp_cost)} of {STEP_ROUNDS}")
+
+        def endless_host():
+            i = 0
+            while True:
+                yield images[rows(i)], padded[rows(i)], counts[rows(i)]
+                i += 1
+
+        stream = StreamingDeviceInput(endless_host(), aug, enc, seed=SEED)
+        batches = iter(stream)
+        for _ in range(3):
+            step(*next(batches))
+        streamed = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(4):
+                step(*next(batches))
+            torch.cuda.synchronize()
+            streamed.append(1e3 * (time.perf_counter() - t0) / 4)
+        stream.stop()
+        batches.close()
+        streamed_ms = summary(streamed)
+    finally:
+        dist.destroy_process_group()
+        store_dir.cleanup()
+
+    # (d) Two ranks on the one card.
+    enc_cpu = SSDInputEncoder(cfg, sizes, max_gt_boxes=AUG_MAX_GT)
+    y_true = enc_cpu.encode_padded(padded[:DP_BATCH], counts[:DP_BATCH]).numpy()
+    rank_launches = dp_two_ranks(state, images, y_true, device)
+
+    def img_per_s(ms):
+        return dict(img_per_s=b * 1e3 / ms["median"],
+                    img_per_s_runs=[b * 1e3 / r for r in ms["runs"]], ms_per_step=ms)
+
+    beside = dict(dp_step_on_card=img_per_s(step_ms), plain_step_on_card=img_per_s(plain_ms),
+                  phase7_step_on_card_ms=step_ms_phase7)
+    lines = [
+        dict(metric="aug_encode_ms", name="device augment+encode batch 32", batch=b,
+             image="300x300 uint8", max_gt=AUG_MAX_GT, ms=aug_ms, card=card),
+        dict(metric="ssd300_train_resident_img_per_s", batch=b, dtype="bf16",
+             path="gather + augment + encode + DP step (NCCL, 1 rank)", **img_per_s(resident_ms),
+             timer="CUDA events", **beside, card=card),
+        dict(metric="ssd300_train_streamed_img_per_s", batch=b, dtype="bf16",
+             path="pinned upload + augment + encode + DP step (NCCL, 1 rank)",
+             **img_per_s(streamed_ms), timer="host clock to a synchronize, 4 steps a run",
+             **beside, card=card),
+    ]
+    for line in lines:
+        log(f"{line['metric']}: {json.dumps({k: v for k, v in line.items() if k != 'metric'})}")
+    return lines, dict(dp_decode_nccl=nccl_launches,
+                       **{f"dp_decode_gloo_rank{r}": n for r, n in enumerate(rank_launches)})
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; the port's main path runs on one")
@@ -555,7 +865,13 @@ def main():
 
     # 7. Training.
     with torch.enable_grad():
-        lines += train_phase(state, device, card)
+        train_lines = train_phase(state, device, card)
+    lines += train_lines
+
+    # 8. Data-parallel training with the on-device input pipeline.
+    with torch.enable_grad():
+        dp_lines, dp_launches = dp_phase(state, device, card, train_lines[0]["ms_per_step"])
+    lines += dp_lines
 
     for line in lines:
         print(json.dumps(line), flush=True)
@@ -564,6 +880,8 @@ def main():
         name="greedy_nms", route="cuda", source="ssd_keras_torch/csrc/nms.cu",
         replaces="ssd_keras_tpu/kernels/nms_pallas.py:52", launches=main_launches,
         max_abs_err=max_err, ms=kernel_ms["median"], plain_ms=plain_ms["median"],
+        launches_by_path=dict(serving=main_launches, serving_requests=serve_launches,
+                              **dp_launches),
     )]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

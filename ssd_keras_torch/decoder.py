@@ -12,6 +12,14 @@ plain PyTorch version for CPU tensors. Every top-k is a stable descending
 sort, which breaks ties lowest index first as ``lax.top_k`` does.
 Thresholds are rounded to f32 before comparing, as JAX compares f32 arrays
 with a Python float.
+
+Under data parallelism each rank decodes its own rows of the global batch,
+so the NMS kernel runs on that rank's ``B_local * (C - 1)`` lanes: what the
+JAX package's ``custom_partitioning`` rule for its kernel
+(``kernels/nms_pallas.py:_nms_partition``) arranges on a mesh, lanes split
+over the devices and each candidate list whole on one.
+``parallel.sharding.global_batch_from_local`` assembles the global batch's
+detections in rank order.
 """
 
 from __future__ import annotations
@@ -266,3 +274,4 @@ def decode_detections_fast_fixed(
         nms_candidates=nms_candidates,
         border_delta=_border_delta(border_pixels),
     )
+

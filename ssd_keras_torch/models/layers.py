@@ -10,14 +10,35 @@ are NCHW as PyTorch's convolutions expect.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["BatchNorm", "L2Normalization", "preprocess_input", "fuse_head_params",
-           "fused_prediction_heads"]
+__all__ = ["BatchNorm", "batch_statistics_over", "L2Normalization", "preprocess_input",
+           "fuse_head_params", "fused_prediction_heads"]
+
+# The process group over whose ranks BatchNorm takes its batch statistics,
+# set only inside ``batch_statistics_over``.
+_STATS_GROUP: contextvars.ContextVar = contextvars.ContextVar("batch_statistics_group",
+                                                              default=None)
+
+
+@contextlib.contextmanager
+def batch_statistics_over(group):
+    """Inside the block, every BatchNorm in training mode takes its batch
+    statistics over the rows of all ranks of ``group`` (``None``: its own
+    rows), as flax's are over the global batch under a mesh. The data-
+    parallel train step runs its forward pass in this block; nothing
+    outside it sees the group."""
+    token = _STATS_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _STATS_GROUP.reset(token)
 
 
 class L2Normalization(nn.Module):
@@ -55,6 +76,13 @@ class BatchNorm(nn.Module):
     Parameters ``weight`` (flax ``scale``) and ``bias``; buffers
     ``running_mean`` and ``running_var`` (flax ``batch_stats`` ``mean`` and
     ``var``). ``self.training`` selects batch or running statistics.
+
+    Inside :func:`batch_statistics_over` a group (the data-parallel train
+    step's forward pass), the batch statistics are the global batch's: a
+    differentiable all-reduce of the per-channel sums of x and x^2 in f32,
+    so the gradient through the statistics is the global one, and the
+    running statistics stay equal on every rank. Every rank holds as many
+    rows.
     """
 
     def __init__(self, channels: int, momentum: float = 0.99, eps: float = 1e-3):
@@ -66,11 +94,28 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
+    def _batch_moments(self, xf: torch.Tensor):
+        """E[x] and E[x^2] per channel, over the (global) batch: the sums
+        over the rows (and ranks) over the count, the same operations with
+        and without a group."""
+        sums = torch.stack([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))])
+        count = xf.numel() // xf.shape[1]
+        group = _STATS_GROUP.get()
+        if group is not None:
+            # Imported here: torch.distributed.nn is slow to import, and only
+            # a data-parallel step needs it. Its backward all-reduces the
+            # gradient, as each rank's loss depends on the global sums.
+            from torch.distributed.nn.functional import all_reduce
+
+            sums = all_reduce(sums, group=group)
+            count *= torch.distributed.get_world_size(group)
+        return sums[0] / count, sums[1] / count
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         if self.training:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp_min((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+            mean, mean2 = self._batch_moments(xf)
+            var = torch.clamp_min(mean2 - mean * mean, 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

@@ -14,6 +14,13 @@ LearningRateScheduler / TerminateOnNaN / EarlyStopping / ReduceLROnPlateau).
 * Parameters stay f32 under any compute dtype (``models/common.py``).
 * Checkpoints are ``torch.save`` files of the model, the optimizer and the
   step count. The Trainer reads losses on the host once per epoch.
+* Data parallelism (``mesh``, ``parallel/sharding.py:make_mesh``): each rank
+  steps on its rows of the global batch, and the step stays the global
+  batch's, as the JAX package's jit over global arrays makes it: the loss
+  is normalised and mined over the global batch (``SSDLoss.local_term``),
+  BatchNorm takes global statistics, the gradients are summed over the
+  ranks before the clip and the update, the L2 term counts once, and the
+  metrics are the global loss. Rank 0 writes checkpoints and logs.
 """
 
 from __future__ import annotations
@@ -26,9 +33,12 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ssd_keras_torch.loss import SSDLoss
+from ssd_keras_torch.models.layers import batch_statistics_over
+from ssd_keras_torch.parallel.sharding import mesh_group
 
 __all__ = [
     "SGD",
@@ -42,6 +52,7 @@ __all__ = [
     "l2_penalty",
     "make_train_step",
     "make_eval_step",
+    "all_reduce_gradients",
     "Callback",
     "ModelCheckpoint",
     "CSVLogger",
@@ -172,39 +183,81 @@ def l2_penalty(kernels: Sequence[torch.Tensor], l2_reg: float):
     return l2_reg * sum(w.square().sum() for w in kernels)
 
 
+def all_reduce_gradients(params: Sequence[torch.Tensor], group) -> None:
+    """Sum the gradients of ``params`` over the ranks of ``group`` in place,
+    in one flat all-reduce (a parameter with no gradient contributes 0)."""
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    for p, g in zip(params, flat.split([g.numel() for g in grads])):
+        if p.grad is None:
+            p.grad = g.view_as(p).clone()
+        else:
+            p.grad.copy_(g.view_as(p))
+
+
 def make_train_step(module: nn.Module, optimizer: torch.optim.Optimizer,
-                    loss_obj: Optional[SSDLoss] = None, l2_reg: float = 0.0):
+                    loss_obj: Optional[SSDLoss] = None, l2_reg: float = 0.0, mesh=None):
     """Build ``train_step(images, y_true) -> {"loss", "data_loss"}``.
 
     One call runs the forward pass (BatchNorm on batch statistics), the SSD
     loss, the L2 penalty, backward, the optimizer's clipping and update, and
     ``zero_grad(set_to_none=True)``. The metrics are device scalars: nothing
     is read on the host.
+
+    With ``mesh``, every rank calls the step on its rows of the global
+    batch (``parallel.sharding.shard_batch``) with equal parameters
+    (``parallel.sharding.replicate``). Each rank backpropagates its term of
+    the global loss (its items over the global positive count, and 1/n of
+    the L2 term), the gradients are summed over the ranks, and the metrics
+    are summed too: every rank returns the global loss and takes the same
+    update.
     """
     loss_obj = loss_obj or SSDLoss()
     kernels = conv_kernels(module)
+    group = None if mesh is None else mesh_group(mesh)
+    world = 1 if group is None else dist.get_world_size(group)
+    params = [p for p in module.parameters() if p.requires_grad]
 
     def train_step(images: torch.Tensor, y_true: torch.Tensor) -> Dict[str, torch.Tensor]:
         module.train()
-        data_loss = loss_obj.compute_loss(y_true, module(images)).mean()
-        loss = data_loss + l2_penalty(kernels, l2_reg)
-        loss.backward()
+        with batch_statistics_over(group):
+            y_pred = module(images)
+        if group is None:
+            data_loss = loss_obj.compute_loss(y_true, y_pred).mean()
+            loss = data_loss + l2_penalty(kernels, l2_reg)
+            loss.backward()
+        else:
+            data_loss = loss_obj.local_term(y_true, y_pred, group)
+            loss = data_loss + l2_penalty(kernels, l2_reg / world)
+            loss.backward()
+            all_reduce_gradients(params, group)
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)
-        return {"loss": loss.detach(), "data_loss": data_loss.detach()}
+        metrics = torch.stack([loss.detach(), data_loss.detach()])
+        if group is not None:
+            dist.all_reduce(metrics, group=group)
+        return {"loss": metrics[0], "data_loss": metrics[1]}
 
     return train_step
 
 
-def make_eval_step(module: nn.Module, loss_obj: Optional[SSDLoss] = None):
+def make_eval_step(module: nn.Module, loss_obj: Optional[SSDLoss] = None, mesh=None):
     """Build ``eval_step(images, y_true) -> loss`` (a device scalar), with
-    BatchNorm on its running statistics."""
+    BatchNorm on its running statistics. With ``mesh``, each rank passes
+    its rows of the global batch and gets the global batch's loss."""
     loss_obj = loss_obj or SSDLoss()
+    group = None if mesh is None else mesh_group(mesh)
 
     @torch.no_grad()
     def eval_step(images: torch.Tensor, y_true: torch.Tensor) -> torch.Tensor:
         module.eval()
-        return loss_obj.compute_loss(y_true, module(images)).mean()
+        y_pred = module(images)
+        if group is None:
+            return loss_obj.compute_loss(y_true, y_pred).mean()
+        loss = loss_obj.local_term(y_true, y_pred, group)
+        dist.all_reduce(loss, group=group)
+        return loss
 
     return eval_step
 
@@ -262,6 +315,8 @@ class CSVLogger(Callback):
                 self.fieldnames = header
 
     def on_epoch_end(self, epoch, logs, trainer):
+        if trainer is not None and not trainer.is_writer:
+            return  # under data parallelism, rank 0 writes the log
         # The header is fixed at the first write: a metric appearing later is
         # dropped with a one-time warning instead of misaligning the columns,
         # and a metric that disappears leaves its column empty.
@@ -376,15 +431,24 @@ class ReduceLROnPlateau(Callback):
 class Trainer:
     """Drives a train step over a generator of ``(images, y_true, ...)``
     batches, with callbacks. Batches go to the module's device. ``step``
-    counts the train steps taken."""
+    counts the train steps taken.
+
+    With ``mesh`` (the steps built with the same mesh), each rank runs its
+    own Trainer over its rows of every global batch. The steps' metrics are
+    global, so every rank logs the same losses and its callbacks decide
+    the same way; rank 0 alone writes checkpoints and the CSV log
+    (``is_writer``), and a restore waits for every rank first.
+    """
 
     def __init__(self, module: nn.Module, optimizer: torch.optim.Optimizer, train_step,
-                 eval_step=None, base_lr: float = 1e-3):
+                 eval_step=None, base_lr: float = 1e-3, mesh=None):
         self.module = module
         self.optimizer = optimizer
         self.train_step = train_step
         self.eval_step = eval_step
         self.base_lr = base_lr
+        self.mesh = mesh
+        self.is_writer = mesh is None or mesh.get_local_rank() == 0
         self.device = next(module.parameters()).device
         self.step = 0
         self.stop_training = False
@@ -403,16 +467,22 @@ class Trainer:
 
     def save_checkpoint(self, directory, step: int) -> str:
         """Write ``{directory}/ckpt_{step}.pt`` (model and optimizer state,
-        train-step count) and return its path."""
+        train-step count) and return its path. Under a mesh only rank 0
+        writes; the state is equal on every rank."""
         directory = os.path.abspath(directory)
-        os.makedirs(directory, exist_ok=True)
         path = os.path.join(directory, f"ckpt_{step}.pt")
-        torch.save({"model": self.module.state_dict(),
-                    "optimizer": self.optimizer.state_dict(),
-                    "step": self.step}, path)
+        if self.is_writer:
+            os.makedirs(directory, exist_ok=True)
+            torch.save({"model": self.module.state_dict(),
+                        "optimizer": self.optimizer.state_dict(),
+                        "step": self.step}, path)
         return path
 
     def restore_checkpoint(self, path):
+        """Load a checkpoint; under a mesh every rank loads it after all
+        ranks (rank 0's write among them) have reached the restore."""
+        if self.mesh is not None:
+            dist.barrier(group=mesh_group(self.mesh))
         ckpt = torch.load(path, map_location=self.device, weights_only=True)
         self.module.load_state_dict(ckpt["model"])
         self.optimizer.load_state_dict(ckpt["optimizer"])

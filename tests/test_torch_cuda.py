@@ -1,5 +1,8 @@
-"""The port on a CUDA card: the kernel against its plain version, and the
-training slice (encode, train step, BatchNorm) against the CPU.
+"""The port on a CUDA card: the kernel against its plain version, the
+training slice (encode, train step, BatchNorm) against the CPU, and the
+data-parallel path (augmentation against the CPU, the streamed upload
+against the direct path, a one-rank NCCL step against the plain step, the
+dry run on two gloo ranks sharing the card).
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither JAX nor the JAX package, so it also runs on a machine with
@@ -8,18 +11,25 @@ a card and no JAX (``tests/conftest.py`` imports JAX, hence the flag):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from ssd_keras_torch import SSDConfig, SSDInputEncoder, SSDLoss, SSDPredictor, ssd_7, ssd_300
 from ssd_keras_torch import train as T
 from ssd_keras_torch.data import SynthVOC
+from ssd_keras_torch.data.device_aug import DeviceSSDAugmentation, batch_seed
+from ssd_keras_torch.data.streaming import StreamingDeviceInput
 from ssd_keras_torch.decoder import decode_detections_fast_fixed, decode_detections_fixed
 from ssd_keras_torch.encoder import pad_labels
 from ssd_keras_torch.kernels import nms as nms_kernel
-from ssd_keras_torch.models import ssd300_predictor_sizes
+from ssd_keras_torch.models import ssd7_predictor_sizes, ssd300_predictor_sizes
 from ssd_keras_torch.ops.nms import greedy_nms_mask
+from ssd_keras_torch.parallel import sharding as sh
+from ssd_keras_torch.parallel.dryrun import dryrun_multichip
 
 torch.set_num_threads(2)
 
@@ -237,3 +247,98 @@ def test_ssd7_batchnorm_statistics_card_equals_cpu(cuda, no_tf32):
         if k.endswith(("running_mean", "running_var")):
             assert not torch.equal(cpu[1][k], state[k]), k  # they moved
             torch.testing.assert_close(card[1][k].cpu(), cpu[1][k], rtol=1e-4, atol=1e-6, msg=k)
+
+
+# The data-parallel path. Augmentation card vs CPU from the same draws:
+# pixels (0-255) within 1e-2 and boxes within 1e-3 px (chip_smoke.py
+# states why). The one-rank NCCL step against the plain step on the same
+# card, with the training slice's step tolerances above: the DP loss is the
+# items' sum over the global batch size where the plain one is their mean,
+# an ulp apart, and SSD7's BatchNorm variance E[x^2] - E[x]^2 cancels in f32
+# on large-mean activations, which amplifies such ulps in the conv1-conv3
+# gradients (tests/test_torch_train.py); BatchNorm running statistics
+# within rtol 1e-4, atol 1e-6.
+AUG_PIXEL_TOL = 1e-2
+AUG_BOX_TOL = 1e-3
+
+
+def test_augmentation_on_card_equals_cpu_with_the_same_draws(cuda, no_tf32):
+    images, padded, counts = _synthvoc(8, max_gt=16)
+    aug = DeviceSSDAugmentation(300, 300)
+    draws = aug.draw(5, 8, cuda)
+    idx = torch.arange(8, device=cuda)
+    draws = draws._replace(geometry=draws.geometry._replace(
+        expand=draws.geometry.expand | (idx % 2 == 0), flip=idx % 3 == 0))
+    card = aug.apply(draws, *(torch.from_numpy(a).to(cuda) for a in (images, padded, counts)))
+    cpu = aug.apply(draws.to("cpu"), *(torch.from_numpy(a) for a in (images, padded, counts)))
+    torch.testing.assert_close(card[0].cpu(), cpu[0], rtol=0, atol=AUG_PIXEL_TOL)
+    assert torch.equal(card[2].cpu(), cpu[2])
+    assert torch.equal(card[1][..., 0].cpu(), cpu[1][..., 0])
+    torch.testing.assert_close(card[1].cpu(), cpu[1], rtol=0, atol=AUG_BOX_TOL)
+
+
+def test_streamed_upload_equals_the_direct_path(cuda):
+    cfg = SSDConfig.ssd7(n_classes=3, img_height=64, img_width=64)
+    enc = SSDInputEncoder(cfg, ssd7_predictor_sizes(64, 64), max_gt_boxes=8, device=cuda)
+    aug = DeviceSSDAugmentation(64, 64)
+    rng = np.random.RandomState(0)
+    host = []
+    for _ in range(6):
+        labels = np.zeros((4, 8, 5), np.float32)
+        labels[:, 0] = [1, 10.5, 12.25, 60.75, 70.5]
+        labels[:, 1] = [2, 40.5, 5.25, 90.75, 50.5]
+        host.append((rng.randint(0, 256, (4, 80, 96, 3)).astype(np.uint8), labels,
+                     np.full(4, 2, np.int32)))
+    stream = StreamingDeviceInput(iter(host), aug, enc, seed=3, depth=2)
+    got = list(stream)
+    assert len(got) == len(host)
+    for i, (x, y) in enumerate(got):
+        assert x.device.type == "cuda"
+        direct = [torch.from_numpy(a).to(cuda) for a in host[i]]
+        a_x, a_p, a_c = aug(batch_seed(3, i), *direct)
+        assert torch.equal(x, a_x) and torch.equal(y, enc.encode_padded(a_p, a_c))
+
+
+def test_one_rank_nccl_dp_step_equals_the_plain_step(cuda, no_tf32, tmp_path):
+    cfg = SSDConfig.ssd7(n_classes=3, img_height=64, img_width=64)
+    model, sizes = ssd_7(cfg, generator=torch.Generator().manual_seed(0))
+    state = model.state_dict()
+    labels = [np.array([[1 + i % 3, 5.5 + i, 7.25, 40.5, 50.0 - i]]) for i in range(4)]
+    y = torch.from_numpy(SSDInputEncoder(cfg, sizes, max_gt_boxes=4)(labels)).to(cuda)
+    x = torch.from_numpy(np.random.RandomState(0).rand(4, 64, 64, 3).astype(np.float32) * 255)
+    x = x.to(cuda)
+
+    def run(mesh):
+        m, _ = ssd_7(cfg, device=cuda)
+        m.load_state_dict(state)
+        opt = T.sgd_with_momentum(m.parameters(), 1e-3, 0.9, clipnorm=5.0)
+        step = T.make_train_step(m, opt, SSDLoss(), l2_reg=5e-4, mesh=mesh)
+        metrics = step(x, y)
+        # A host copy: the state dict's tensors are the parameters, which
+        # the sync check's further step moves.
+        return float(metrics["loss"]), {k: v.cpu() for k, v in m.state_dict().items()}, step
+
+    plain_loss, plain_state, _ = run(None)
+    sh.initialize_distributed("nccl", 1, 0,
+                              store=dist.FileStore(os.path.join(tmp_path, "store"), 1))
+    try:
+        mesh = sh.make_mesh("cuda")
+        dp_loss, dp_state, step = run(mesh)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step(x, y)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    finally:
+        dist.destroy_process_group()
+    _assert_steps_close(state, (plain_loss, plain_state), (dp_loss, dp_state))
+    for k in state:
+        if k.endswith(("running_mean", "running_var")):
+            torch.testing.assert_close(dp_state[k], plain_state[k], rtol=1e-4, atol=1e-6, msg=k)
+
+
+def test_dryrun_on_two_gloo_ranks_sharing_the_card(cuda):
+    reports = dryrun_multichip(2, device_type="cuda", timeout=300)
+    assert [r["rank"] for r in reports] == [0, 1]
+    assert all(r["nms_launches"] >= 1 and r["n_streamed"] == 3 for r in reports)

@@ -20,7 +20,10 @@ def test_import_needs_neither_jax_nor_the_jax_package():
         "import importlib, pkgutil, sys, ssd_keras_torch\n"
         "for m in pkgutil.walk_packages(ssd_keras_torch.__path__, 'ssd_keras_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "assert 'ssd_keras_torch.train' in sys.modules\n"
+        "assert {'ssd_keras_torch.train', 'ssd_keras_torch.data.device_aug',\n"
+        "        'ssd_keras_torch.data.streaming', 'ssd_keras_torch.data.prefetch',\n"
+        "        'ssd_keras_torch.parallel.sharding', 'ssd_keras_torch.parallel.launch',\n"
+        "        'ssd_keras_torch.parallel.dryrun'} <= set(sys.modules)\n"
         "bad = {'jax', 'flax', 'ssd_keras_tpu', 'h5py', 'PIL', 'triton'} & set(sys.modules)\n"
         "assert not bad, bad\n"
     )
