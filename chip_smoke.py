@@ -7,10 +7,16 @@ Phases, in order; the first failure raises and the script exits non-zero:
 
 1. Device: the card's name and power limit (``nvidia-smi``).
 2. Build the CUDA kernels from ``ssd_keras_torch/csrc`` with nvcc (sm_90a).
-3. Kernel against plain: the greedy-NMS kernel must equal its plain PyTorch
-   version bit for bit at the main path's shapes (L = 160, 640 and 8 lanes
-   of K = 400), with border_delta 0 and +-1, non-prefix valid masks and
-   empty lanes.
+3. Kernel against plain: the greedy-NMS kernel's keep mask must equal its
+   plain PyTorch version bit for bit, on the card and on the CPU, and its
+   IoU-mask pass (pass A) must equal ``iou_suppression_mask`` word for word
+   on every word pass B reads: at the main path's shapes (L = 160, 640 and
+   8 lanes of K = 400) with border_delta 0 and +-1, non-prefix valid masks
+   and empty lanes; at K = 64, 65 and 3000; lanes valid only in their last
+   row; NaN, zero-area and inverted boxes; trained-like sparse lanes (a
+   valid prefix of 0-60 rows). Two cases run again with the kernel's
+   scratch pre-filled with ones (a hook in this script): pass B must read
+   no word that pass A did not write.
 4. Main path: SSD300 VOC at full width, batch 8, 'inference' mode on the
    card, from seeded weights: at f32 (TF32 off) against the same port on
    the CPU, at bf16 (finite, in-frame output), then 'inference_fast', then
@@ -22,7 +28,12 @@ Phases, in order; the first failure raises and the script exits non-zero:
 6. Timings (CUDA events after warm-up): SSD300 batch-8 'inference' img/s at
    bf16 and f32; at bf16, serving from the kept bf16 copies of the f32
    weights against casting them at every call and against bf16 parameters,
-   interleaved; the NMS kernel against the plain version at L=160, K=400.
+   interleaved; the NMS kernel and its plain version at five shapes (L=160,
+   K=400 all valid; the lanes the bf16 main path hands the kernel, recorded
+   by wrapping ``decoder.greedy_nms_mask_batched``; COCO's L=640; the
+   ``inference_fast`` L=8; trained-like sparse lanes), each held to the
+   plain version's keep mask and shown beside the kept rows, the IoU pairs
+   and bytes the inputs need and the bound those give.
 7. Training, SSD300 VOC at full width on 64 SynthVOC images from the seed:
    the targets of a batch of 32 encoded on the card equal those encoded on
    the CPU; one f32 SGD step (TF32 off, batch 2) on the card matches the
@@ -58,6 +69,7 @@ It prints JSON lines (timings, then the kernels line), then as its last line
 printing any result. Imports torch, numpy and ssd_keras_torch only.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -72,6 +84,7 @@ import torch
 import torch.distributed as dist
 
 from ssd_keras_torch import SSDConfig, SSDInputEncoder, SSDLoss, SSDPredictor, ssd_300
+from ssd_keras_torch import decoder
 from ssd_keras_torch import train as T
 from ssd_keras_torch.data import SynthVOC
 from ssd_keras_torch.data.device_aug import DeviceSSDAugmentation, batch_seed, geometry_from_draws
@@ -81,7 +94,7 @@ from ssd_keras_torch.encoder import pad_labels
 from ssd_keras_torch.kernels import build
 from ssd_keras_torch.kernels import nms as nms_kernel
 from ssd_keras_torch.models import ssd300_predictor_sizes
-from ssd_keras_torch.ops.nms import greedy_nms_mask
+from ssd_keras_torch.ops.nms import greedy_nms_mask, iou_suppression_mask, lane_bounds, words_read
 from ssd_keras_torch.parallel import sharding as sh
 from ssd_keras_torch.parallel.dryrun import dp_check_rank
 from ssd_keras_torch.parallel.launch import run_ranks
@@ -125,6 +138,29 @@ STEP_PARAM_TOL = 1e-2  # of the step's largest update
 RESTORE_TOL = 1e-6
 # Interleaved rounds of the bf16 weight-cast A/B (phase 6).
 CAST_AB_ROUNDS = 20
+# Phase 3: (lanes, K, kind of lanes, border_delta); the kinds are
+# random_lanes'. The cases in NMS_ONES_CASES run again from a scratch of
+# all ones.
+NMS_CASES = [(160, 400, "prefix", 0.0), (640, 400, "prefix", 0.0), (8, 400, "prefix", 0.0),
+             (160, 400, "random", 1.0), (640, 400, "random", -1.0), (8, 400, "random", 1.0),
+             (16, 64, "random", 0.0), (16, 65, "prefix", 1.0), (2, 3000, "prefix", 0.0),
+             (8, 400, "last", 0.0), (24, 400, "hard", 0.0), (160, 400, "sparse", 0.0)]
+NMS_ONES_CASES = {(160, 400, "random", 1.0), (24, 400, "hard", 0.0)}
+# The NMS kernel's bound (phase 6): the bytes the inputs need (the valid
+# rows' boxes and the valid flags) read and keep written once each at the
+# card's 3.35 TB/s, and ~16 f32 operations an IoU
+# pair (2 min, 2 max, 4 add/sub, 2 clamps, the product, the union's add and
+# sub, the division, 2 compares) at 67 TFLOP/s of f32 outside the tensor
+# cores (NVIDIA's H100 SXM data sheet).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+OPS_PER_PAIR = 16
+# Cycles of torch.cuda._sleep that hold the card while time_device enqueues:
+# at least 10 ms at the H100's highest SM clock.
+HOLD_CYCLES = 20_000_000
+MAX_SM_CLOCK_HZ = 1.98e9
+NMS_LIBRARY_NOTE = ("no single PyTorch call computes greedy NMS (torchvision.ops.nms is not "
+                    "part of PyTorch, and the port uses no torchvision)")
 # Phase 8: the input pipeline at batch 32 with up to 32 boxes an image, a
 # resident dataset of 256 SynthVOC images, and two ranks at global batch 8.
 AUG_BATCH = 32
@@ -175,7 +211,8 @@ def seeded_state():
     overflows the box exponent: conv1_1 at 1/100 brings the logits to O(1).
     The loc heads at 1/4 then give encoded offsets of ~0.4 RMS, so every
     decoded box stays near its anchor, as a trained model's do."""
-    model, _ = ssd_300(SSDConfig.ssd300(), generator=torch.Generator().manual_seed(SEED))
+    model, _ = ssd_300(SSDConfig.ssd300(), generator=torch.Generator().manual_seed(SEED),
+                       device="cpu")
     with torch.no_grad():
         model.conv1_1.weight.mul_(0.01)
         for name, module in model.named_children():
@@ -184,17 +221,174 @@ def seeded_state():
     return model.state_dict()
 
 
-def random_lanes(rng, lanes, k, prefix=True):
-    """(L, K, 4) overlapping corner boxes in a 300x300 frame, (L, K) valid."""
+def random_lanes(rng, lanes, k, kind="prefix"):
+    """(L, K, 4) overlapping corner boxes in a 300x300 frame, (L, K) valid.
+    ``kind``: "prefix" (a valid prefix of K/2..K rows), "all", "random" (a
+    non-prefix mask, every 7th lane empty), "sparse" (a trained detector's
+    lanes: a valid prefix of 0..60 rows), "last" (only the last row valid)
+    or "hard" (random, then ``make_hard``)."""
     centre = rng.rand(lanes, k, 2) * 300
     half = (10 + rng.rand(lanes, k, 2) * 90) / 2
     boxes = np.concatenate([centre - half, centre + half], axis=-1).astype(np.float32)
-    if prefix:
-        valid = np.arange(k)[None, :] < rng.randint(k // 2, k + 1, size=(lanes, 1))
+    rows = np.arange(k)[None, :]
+    if kind == "prefix":
+        valid = rows < rng.randint(k // 2, k + 1, size=(lanes, 1))
+    elif kind == "all":
+        valid = np.ones((lanes, k), bool)
+    elif kind == "sparse":
+        valid = rows < rng.randint(0, 61, size=(lanes, 1))
+    elif kind == "last":
+        valid = np.broadcast_to(rows == k - 1, (lanes, k)).copy()
     else:
         valid = rng.rand(lanes, k) > 0.4
         valid[::7] = False  # empty lanes
+    if kind == "hard":
+        make_hard(boxes, valid)
     return boxes, valid
+
+
+def make_hard(boxes, valid):
+    """In place: NaN corners in every third lane from lanes 1 and 2, zero-area
+    and inverted boxes in every lane, and lane 0 valid only in its last row."""
+    boxes[1::3, ::5, 0] = np.nan
+    boxes[2::3, 1::6, 3] = np.nan
+    boxes[:, 2::7, 2:] = boxes[:, 2::7, :2]  # zero area
+    boxes[:, 3::11, 2:] = boxes[:, 3::11, :2] - 5  # inverted
+    valid[0] = False
+    valid[0, -1] = True
+
+
+@contextlib.contextmanager
+def scratch_of_ones():
+    """The NMS kernel's scratch filled with all ones before each call, by a
+    hook on the wrapper's ``_scratch`` in this script (the package has no
+    such option): a keep mask that still equals the plain version shows
+    that pass B reads no word pass A did not write."""
+    scratch = nms_kernel._scratch
+    nms_kernel._scratch = lambda *args: scratch(*args).fill_(-1)
+    try:
+        yield
+    finally:
+        nms_kernel._scratch = scratch
+
+
+def nms_kernel_vs_plain(device):
+    """Phase 3. Returns the largest |kernel - plain| over the keep flags."""
+    rng = np.random.RandomState(SEED)
+    max_err = 0.0
+    for case in NMS_CASES:
+        lanes, k, kind, d = case
+        boxes, valid = random_lanes(rng, lanes, k, kind)
+        b, v = torch.from_numpy(boxes).to(device), torch.from_numpy(valid).to(device)
+        name = f"L={lanes} K={k} {kind} border_delta={d:+.0f}"
+        read = words_read(v)
+        words = nms_kernel.iou_mask(b, v, IOU_THRESHOLD, d)[read]
+        plain_words = iou_suppression_mask(b, v, IOU_THRESHOLD, d)[read]
+        if not torch.equal(words, plain_words):
+            raise AssertionError(f"NMS mask pass != plain at {name}: "
+                                 f"{int((words != plain_words).sum())} of {words.numel()} words")
+        got = nms_kernel.greedy_nms_mask_batched(b, v, IOU_THRESHOLD, d)
+        plain = greedy_nms_mask(b, v, IOU_THRESHOLD, d)
+        torch.cuda.synchronize()
+        max_err = max(max_err, float((got != plain).float().max()))
+        if not torch.equal(got, plain):
+            raise AssertionError(f"NMS kernel != plain at {name}: "
+                                 f"{int((got != plain).sum())} of {got.numel()} flags differ")
+        cpu = greedy_nms_mask(torch.from_numpy(boxes), torch.from_numpy(valid), IOU_THRESHOLD, d)
+        if not torch.equal(got.cpu(), cpu):
+            raise AssertionError(f"NMS kernel != plain on the CPU at {name}")
+        ones = ""
+        if case in NMS_ONES_CASES:
+            with scratch_of_ones():
+                again = nms_kernel.greedy_nms_mask_batched(b, v, IOU_THRESHOLD, d)
+            if not torch.equal(again, plain):
+                raise AssertionError(f"NMS kernel from a scratch of ones != plain at {name}")
+            ones = "; from a scratch of ones too"
+        log(f"nms {name}: mask pass == plain on the {words.numel()} words pass B reads "
+            f"({int(words.ne(0).sum())} non-zero); keep == plain (card and CPU), "
+            f"{int(got.sum())} kept of {int(v.sum())} valid{ones}")
+    return max_err
+
+
+def record_nms_inputs(model, x):
+    """The (boxes, valid) that the decoder hands the NMS kernel in one call
+    of ``model(x)``, recorded by wrapping ``decoder.greedy_nms_mask_batched``."""
+    seen = []
+    inner = decoder.greedy_nms_mask_batched
+
+    def record(boxes, valid, *args):
+        seen.append((boxes.clone(), valid.clone()))
+        return inner(boxes, valid, *args)
+
+    decoder.greedy_nms_mask_batched = record
+    try:
+        model(x)
+    finally:
+        decoder.greedy_nms_mask_batched = inner
+    if len(seen) != 1:
+        raise AssertionError(f"one decode called the NMS kernel {len(seen)} times")
+    return seen[0]
+
+
+def nms_shapes(device, serving, x):
+    """Phase 6's NMS inputs by name: (boxes, valid) on the card."""
+    rng = np.random.RandomState(SEED + 3)
+
+    def lanes(n, kind):
+        return tuple(torch.from_numpy(a).to(device) for a in random_lanes(rng, n, 400, kind))
+
+    return {"L160_all_valid": lanes(160, "all"),
+            "main_path": record_nms_inputs(serving, x),
+            "coco_L640_all_valid": lanes(640, "all"),
+            "inference_fast_L8_all_valid": lanes(8, "all"),
+            "sparse_L160": lanes(160, "sparse")}
+
+
+def nms_bound(valid, keep):
+    """What these inputs need of the kernel: the kept rows, the IoU pairs
+    (each kept row i against the rows after it below its lane's bound),
+    the bytes (the valid rows' boxes and every valid flag read, keep
+    written, once each; no row past a lane's last valid row is needed) and
+    the least time the card could take for them."""
+    k = valid.shape[1]
+    after = lane_bounds(valid)[:, None] - 1 - torch.arange(k, device=valid.device)
+    pairs = int(torch.where(keep, after, 0).sum())
+    nbytes = 16 * int(valid.sum()) + valid.numel() + keep.numel()
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * pairs * OPS_PER_PAIR / F32_OPS_PER_S
+    return dict(kept=int(keep.sum()), pairs=pairs, bytes=nbytes, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def nms_timings(shapes, card):
+    """Phase 6: at each shape, the NMS kernel's keep mask against its plain
+    version's, then the kernel's device time, whole calls back to back
+    (where the host's time per call may set the pace) and the plain
+    version's time."""
+    lines = []
+    for name, (b, v) in shapes.items():
+        def call():
+            return nms_kernel.greedy_nms_mask_batched(b, v, IOU_THRESHOLD)
+
+        keep = call()
+        if not torch.equal(keep, greedy_nms_mask(b, v, IOU_THRESHOLD)):
+            raise AssertionError(f"NMS kernel != plain on phase 6's {name} lanes")
+        cost = nms_bound(v, keep)
+        kernel_ms = summary(time_device(call, iters=50))
+        call_ms = summary(time_cuda(call, iters=50))
+        plain_ms = summary(time_cuda(lambda: greedy_nms_mask(b, v, IOU_THRESHOLD), 1, warmup=1))
+        lines.append(dict(
+            metric="nms_ms", shape=name, lanes=v.shape[0], k=v.shape[1], valid=int(v.sum()),
+            **cost, kernel_ms=kernel_ms, bound_share=cost["bound_ms"] / kernel_ms["median"],
+            call_ms=call_ms, plain_ms=plain_ms, library_ms=None, library_note=NMS_LIBRARY_NOTE,
+            card=card))
+        log(f"nms {name}: keep == plain; kernel {kernel_ms['median'] * 1e3:.1f} us on the card "
+            f"(whole calls back to back {call_ms['median'] * 1e3:.1f} us), {cost['kept']} kept "
+            f"of {int(v.sum())} valid, {cost['pairs']} pairs, bound "
+            f"{cost['bound_ms'] * 1e3:.3f} us ({cost['bound_by']}) = "
+            f"{100 * lines[-1]['bound_share']:.2f}% of the kernel's time; "
+            f"plain {plain_ms['median']:.1f} ms")
+    return lines
 
 
 def match_rows(got, expected, score_tol, box_tol):
@@ -264,6 +458,32 @@ def time_cuda(fn, iters, repeats=5, warmup=3):
     return runs
 
 
+def time_device(fn, iters, repeats=5, warmup=3):
+    """Milliseconds of device time per call of ``fn``, one value per repeat:
+    CUDA events around ``iters`` calls that the host enqueues while the card
+    is held busy (``torch.cuda._sleep``), so the host's own time per call is
+    not counted. Raises if the host took longer to enqueue than the hold."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOLD_CYCLES)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        host_s = time.perf_counter() - t0
+        end.synchronize()
+        if host_s > HOLD_CYCLES / MAX_SM_CLOCK_HZ / 2:
+            raise AssertionError(f"enqueueing {iters} calls took {1e3 * host_s:.2f} ms of host "
+                                 "time, too close to the hold: the device time would include it")
+        runs.append(start.elapsed_time(end) / iters)
+    return runs
+
+
 def summary(runs):
     med = statistics.median(runs)
     return dict(median=med, min=min(runs), max=max(runs),
@@ -328,7 +548,7 @@ def train_phase(state, device, card):
     x_all = torch.from_numpy(images).to(device)  # uint8; the model casts
     p_all, c_all = torch.from_numpy(padded).to(device), torch.from_numpy(counts).to(device)
     enc = SSDInputEncoder(cfg, sizes, max_gt_boxes=MAX_GT, device=device)
-    enc_cpu = SSDInputEncoder(cfg, sizes, max_gt_boxes=MAX_GT)
+    enc_cpu = SSDInputEncoder(cfg, sizes, max_gt_boxes=MAX_GT, device="cpu")
     b = TRAIN_BATCH
 
     # Encode on the card against the CPU.
@@ -685,7 +905,7 @@ def dp_phase(state, device, card, step_ms_phase7):
         store_dir.cleanup()
 
     # (d) Two ranks on the one card.
-    enc_cpu = SSDInputEncoder(cfg, sizes, max_gt_boxes=AUG_MAX_GT)
+    enc_cpu = SSDInputEncoder(cfg, sizes, max_gt_boxes=AUG_MAX_GT, device="cpu")
     y_true = enc_cpu.encode_padded(padded[:DP_BATCH], counts[:DP_BATCH]).numpy()
     rank_launches = dp_two_ranks(state, images, y_true, device)
 
@@ -733,27 +953,7 @@ def main():
     log(f"built {build.BUILD_DIR.name}/ with nvcc in {build_s:.2f} s")
 
     # 3. Kernel against plain, on the card.
-    rng = np.random.RandomState(SEED)
-    max_err = 0.0
-    cases = [(160, True, 0.0), (640, True, 0.0), (8, True, 0.0),
-             (160, False, 1.0), (640, False, -1.0), (8, False, 1.0)]
-    for lanes, prefix, d in cases:
-        boxes, valid = random_lanes(rng, lanes, 400, prefix)
-        b, v = torch.from_numpy(boxes).to(device), torch.from_numpy(valid).to(device)
-        got = nms_kernel.greedy_nms_mask_batched(b, v, IOU_THRESHOLD, d)
-        plain = greedy_nms_mask(b, v, IOU_THRESHOLD, d)
-        torch.cuda.synchronize()
-        err = float((got != plain).float().max())
-        max_err = max(max_err, err)
-        if not torch.equal(got, plain):
-            raise AssertionError(
-                f"NMS kernel != plain at L={lanes} prefix={prefix} d={d}: "
-                f"{int((got != plain).sum())} of {got.numel()} flags differ")
-        cpu = greedy_nms_mask(torch.from_numpy(boxes), torch.from_numpy(valid), IOU_THRESHOLD, d)
-        if not torch.equal(got.cpu(), cpu):
-            raise AssertionError(f"NMS kernel != plain on the CPU at L={lanes} d={d}")
-        log(f"nms kernel == plain (card and CPU), L={lanes} K=400 prefix={prefix} "
-            f"border_delta={d:+.0f}: {int(got.sum())} kept of {int(v.sum())} valid")
+    max_err = nms_kernel_vs_plain(device)
 
     # 4. Main path.
     state = seeded_state()
@@ -855,13 +1055,9 @@ def main():
             ms_per_batch=ms, card=card,
         ))
     lines.append(cast_ab(state, bf16, x, card))
-    boxes, _ = random_lanes(np.random.RandomState(SEED + 3), 160, 400)
-    b = torch.from_numpy(boxes).to(device)
-    v = torch.ones(160, 400, dtype=torch.bool, device=device)  # worst case: all valid
-    kernel_ms = summary(time_cuda(lambda: nms_kernel.greedy_nms_mask_batched(b, v, IOU_THRESHOLD), 50))
-    plain_ms = summary(time_cuda(lambda: greedy_nms_mask(b, v, IOU_THRESHOLD), 3, warmup=1))
-    lines.append(dict(metric="nms_ms", lanes=160, k=400, valid="all", kernel_ms=kernel_ms,
-                      plain_ms=plain_ms, card=card))
+    nms_lines = nms_timings(nms_shapes(device, bf16, x), card)
+    lines += nms_lines
+    nms_main = next(line for line in nms_lines if line["shape"] == "main_path")
 
     # 7. Training.
     with torch.enable_grad():
@@ -879,7 +1075,10 @@ def main():
     kernels = [dict(
         name="greedy_nms", route="cuda", source="ssd_keras_torch/csrc/nms.cu",
         replaces="ssd_keras_tpu/kernels/nms_pallas.py:52", launches=main_launches,
-        max_abs_err=max_err, ms=kernel_ms["median"], plain_ms=plain_ms["median"],
+        max_abs_err=max_err, ms=nms_main["kernel_ms"]["median"],
+        plain_ms=nms_main["plain_ms"]["median"], bound_ms=nms_main["bound_ms"],
+        bound_by=nms_main["bound_by"], library_ms=None, library_note=NMS_LIBRARY_NOTE,
+        shape="main_path", passes=2,
         launches_by_path=dict(serving=main_launches, serving_requests=serve_launches,
                               **dp_launches),
     )]

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ssd_keras_torch.config import SSDConfig
+from ssd_keras_torch.devices import target_device
 from ssd_keras_torch.ops import boxes as box_ops
 from ssd_keras_torch.ops.matching import match_bipartite_greedy_topk, match_multi
 
@@ -176,7 +177,8 @@ class SSDInputEncoder:
     """Counterpart of the JAX package's ``SSDInputEncoder``.
 
     Construct from an :class:`SSDConfig` plus the model's predictor sizes and
-    the device to encode on. ``__call__`` takes the ragged list of per-image
+    the device to encode on (the card unless the caller asks for the CPU; no
+    card raises). ``__call__`` takes the ragged list of per-image
     ``(k, 5)`` arrays with rows ``(class_id, xmin, ymin, xmax, ymax)``, checks
     them, and returns the dense ``(batch, #boxes, n_classes + 12)`` y_true as
     NumPy; :meth:`encode_padded` takes padded tensors and returns a tensor on
@@ -189,13 +191,13 @@ class SSDInputEncoder:
         predictor_sizes: Sequence[Tuple[int, int]],
         max_gt_boxes: int = 64,
         dtype: torch.dtype = torch.float32,
-        device="cpu",
+        device="cuda",
     ):
+        self.device = target_device(device)
         self.config = config
         self.predictor_sizes = [tuple(int(v) for v in s) for s in predictor_sizes]
         self.max_gt_boxes = int(max_gt_boxes)
         self.dtype = dtype
-        self.device = torch.device(device)
         self.anchors8 = torch.tensor(
             config.anchor_tensor(self.predictor_sizes), dtype=dtype, device=self.device
         )

@@ -106,6 +106,8 @@ def load_library() -> ctypes.CDLL:
     except OSError as e:
         raise RuntimeError(f"cannot load {lib_path}: {e}") from e
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ssd_greedy_nms.argtypes = [p, p, p, i, i, f, f, p]
+    lib.ssd_greedy_nms.argtypes = [p, p, p, p, i, i, f, f, p]
     lib.ssd_greedy_nms.restype = ctypes.c_int
+    lib.ssd_nms_iou_mask.argtypes = [p, p, p, i, i, f, f, p]
+    lib.ssd_nms_iou_mask.restype = ctypes.c_int
     return lib

@@ -6,15 +6,23 @@ the fixed-shape decoder runs over L = B * (C - 1) lanes of K = 400
 candidates per batch in ``inference`` mode and L = B lanes in
 ``inference_fast``.
 
-What bounds it on the card: the serial chain of K row decisions per lane,
-a latency bound; the lanes' data (20 bytes a box) and IoU arithmetic are
-small. The kernel runs one thread block per lane with the lane held in
-shared memory, stops at the lane's last valid row, and pays a barrier only
-for kept rows (see the source's header).
+What bounds it on the card: the IoU tests, up to K (K - 1) / 2 a lane with
+an IEEE division each, and the serial chain of keep decisions around them.
+The kernel runs in two passes (see the source's header): pass A tests
+every pair below the lane's trip bound in parallel and packs the results
+into an (L, K, ceil(K / 64)) u64 bitmask; pass B resolves each lane with
+one warp, serially in bit operations only.
 
 Dispatch is by the tensors' device and nothing else: a CPU tensor goes to
 the plain PyTorch version (``ops/nms.py:greedy_nms_mask``); a CUDA tensor
-launches the kernel or raises. ``launches`` counts kernel launches.
+launches the kernel or raises. ``launches`` counts calls that launched the
+kernel (each is two kernel launches, pass A then pass B).
+
+The decode calls this once a batch and is host-bound on sparse lanes, so a
+call does little on the host besides its two launches: it allocates only
+``keep``; pass A's scratch is kept per (device, stream) and grown to the
+largest call seen (3.6 MB at L = 160, K = 400; 57 MB at L = 2560), and
+the device is switched only when it is not the current one.
 """
 
 from __future__ import annotations
@@ -22,27 +30,20 @@ from __future__ import annotations
 import torch
 
 from ssd_keras_torch.kernels.build import load_library
-from ssd_keras_torch.ops.nms import greedy_nms_mask
+from ssd_keras_torch.ops.nms import greedy_nms_mask, mask_words
 
-__all__ = ["greedy_nms_mask_batched", "launches"]
+__all__ = ["greedy_nms_mask_batched", "iou_mask", "launches"]
 
-# Incremented once per kernel launch (never for the CPU path): a run can
-# show that its NMS went through the kernel.
+# Incremented once per call that launches the kernel (never for the CPU
+# path): a run can show that its NMS went through the kernel.
 launches = 0
 
-# Shared memory per lane is 22 bytes a candidate; 227 KB is a block's limit.
+# Pass B keeps each lane's removed bitmap, ceil(K / 64) words, in static
+# shared memory sized for 160 words (csrc/nms.cu:kMaxWords).
 MAX_CANDIDATES = 10240
 
 
-def greedy_nms_mask_batched(
-    boxes: torch.Tensor,
-    valid: torch.Tensor,
-    iou_threshold: float = 0.45,
-    border_delta: float = 0.0,
-) -> torch.Tensor:
-    """(L, K) bool keep mask for (L, K, 4) f32 corners sorted by score
-    descending per lane and an (L, K) bool ``valid`` mask."""
-    global launches
+def _check(boxes: torch.Tensor, valid: torch.Tensor) -> None:
     if boxes.dtype != torch.float32 or valid.dtype != torch.bool:
         raise TypeError(
             f"boxes must be float32 and valid bool, got {boxes.dtype} and {valid.dtype}"
@@ -56,25 +57,101 @@ def greedy_nms_mask_batched(
         raise ValueError("boxes and valid must be contiguous")
     if boxes.device != valid.device:
         raise ValueError(f"boxes on {boxes.device} but valid on {valid.device}")
-    if boxes.device.type == "cpu":
-        return greedy_nms_mask(boxes, valid, iou_threshold, border_delta)
+
+
+def _check_cuda(boxes: torch.Tensor) -> None:
     if boxes.device.type != "cuda":
         raise ValueError(f"unsupported device {boxes.device}")
+    if boxes.shape[1] > MAX_CANDIDATES:
+        raise ValueError(
+            f"K = {boxes.shape[1]} exceeds the kernel's {MAX_CANDIDATES} candidates"
+        )
+
+
+def _stream(index: int) -> int:
+    """Card ``index``'s current stream as a raw handle (what
+    ``torch.cuda.current_stream(index).cuda_stream`` gives, without making a
+    Stream object)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def _launch(entry: str, index: int, stream: int, *args) -> None:
+    """Call the C entry ``entry`` on card ``index`` and ``stream``."""
+    fn = getattr(load_library(), entry)
+    if index == torch.cuda.current_device():
+        status = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            status = fn(*args, stream)
+    if status != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {status}")
+
+
+# Pass A's scratch for each (device index, raw stream). A call's two kernels
+# run on its stream after every earlier call's, so the next call on the same
+# stream may reuse the words; pass B reads only the words pass A writes in
+# its own call, so what an earlier call left there does not matter.
+_scratches: dict = {}
+
+
+def _scratch(index: int, stream: int, words: int) -> torch.Tensor:
+    """At least ``words`` int64 of scratch on card ``index`` for ``stream``."""
+    scratch = _scratches.get((index, stream))
+    if scratch is None or scratch.numel() < words:
+        scratch = torch.empty(words, dtype=torch.int64, device=torch.device("cuda", index))
+        _scratches[index, stream] = scratch
+    return scratch
+
+
+def greedy_nms_mask_batched(
+    boxes: torch.Tensor,
+    valid: torch.Tensor,
+    iou_threshold: float = 0.45,
+    border_delta: float = 0.0,
+) -> torch.Tensor:
+    """(L, K) bool keep mask for (L, K, 4) f32 corners sorted by score
+    descending per lane and an (L, K) bool ``valid`` mask. On the card one
+    call is two kernel launches (pass A, pass B) and counts once in
+    ``launches``."""
+    global launches
+    _check(boxes, valid)
+    if boxes.device.type == "cpu":
+        return greedy_nms_mask(boxes, valid, iou_threshold, border_delta)
+    _check_cuda(boxes)
 
     lanes, k = valid.shape
-    if k > MAX_CANDIDATES:
-        raise ValueError(f"K = {k} exceeds the kernel's {MAX_CANDIDATES} candidates")
     keep = torch.empty_like(valid)
     if lanes == 0 or k == 0:
         return keep
-    lib = load_library()
-    with torch.cuda.device(boxes.device):
-        status = lib.ssd_greedy_nms(
-            boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), lanes, k,
-            float(iou_threshold), float(border_delta),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if status != 0:
-        raise RuntimeError(f"greedy NMS kernel launch failed: CUDA error {status}")
+    index = boxes.device.index
+    stream = _stream(index)
+    mask = _scratch(index, stream, lanes * k * mask_words(k))
+    _launch("ssd_greedy_nms", index, stream, boxes.data_ptr(), valid.data_ptr(),
+            keep.data_ptr(), mask.data_ptr(), lanes, k, float(iou_threshold),
+            float(border_delta))
     launches += 1
     return keep
+
+
+def iou_mask(
+    boxes: torch.Tensor,
+    valid: torch.Tensor,
+    iou_threshold: float = 0.45,
+    border_delta: float = 0.0,
+) -> torch.Tensor:
+    """Pass A alone, on CUDA tensors: the (L, K, ceil(K / 64)) int64
+    suppression bitmask that ``ops/nms.py:iou_suppression_mask`` computes
+    in plain PyTorch. Only the words pass B reads are written (rows below
+    the lane's trip bound, words from the row's own 64-row chunk up to the
+    bound's); the rest are left as ``torch.empty`` gave them. Not counted in
+    ``launches``: the main path does not call it."""
+    _check(boxes, valid)
+    _check_cuda(boxes)
+    lanes, k = valid.shape
+    mask = torch.empty(lanes, k, mask_words(k), dtype=torch.int64, device=boxes.device)
+    if lanes == 0 or k == 0:
+        return mask
+    index = boxes.device.index
+    _launch("ssd_nms_iou_mask", index, _stream(index), boxes.data_ptr(), valid.data_ptr(),
+            mask.data_ptr(), lanes, k, float(iou_threshold), float(border_delta))
+    return mask

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ssd_keras_torch.config import SSDConfig
+from ssd_keras_torch.devices import target_device
 from ssd_keras_torch.models.common import (
     SSDModule,
     apply_mode,
@@ -171,11 +172,12 @@ def ssd_300(
     config: Optional[SSDConfig] = None,
     mode: str = "training",
     compute_dtype: torch.dtype = torch.float32,
-    device="cpu",
+    device="cuda",
     generator: Optional[torch.Generator] = None,
     **config_overrides,
 ):
-    """Build an SSD300 model on ``device``. Returns ``(module, predictor_sizes)``.
+    """Build an SSD300 model on ``device`` (the card unless the caller asks
+    for the CPU; no card raises). Returns ``(module, predictor_sizes)``.
 
     Weights are drawn on the CPU from ``generator`` (a CPU
     ``torch.Generator``; the global one if None), so one seed gives the same
@@ -184,6 +186,7 @@ def ssd_300(
     no ``config`` the canonical Pascal-VOC configuration is used;
     ``config_overrides`` go to :meth:`SSDConfig.ssd300`.
     """
+    device = target_device(device)
     if config is None:
         config = SSDConfig.ssd300(**config_overrides)
     elif config_overrides:

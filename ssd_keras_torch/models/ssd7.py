@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ssd_keras_torch.config import SSDConfig
+from ssd_keras_torch.devices import target_device
 from ssd_keras_torch.models.common import (
     SSDModule,
     apply_mode,
@@ -98,16 +99,18 @@ def build_model(
     config: Optional[SSDConfig] = None,
     mode: str = "training",
     compute_dtype: torch.dtype = torch.float32,
-    device="cpu",
+    device="cuda",
     generator: Optional[torch.Generator] = None,
     **config_overrides,
 ):
-    """Build an SSD7 model on ``device``. Returns ``(module, predictor_sizes)``.
+    """Build an SSD7 model on ``device`` (the card unless the caller asks for
+    the CPU; no card raises). Returns ``(module, predictor_sizes)``.
 
     Weights are drawn on the CPU from ``generator`` as in ``ssd_300`` and
     stay f32. With no ``config`` the canonical SSD7 configuration is used;
     ``config_overrides`` go to :meth:`SSDConfig.ssd7`.
     """
+    device = target_device(device)
     if config is None:
         config = SSDConfig.ssd7(**config_overrides)
     elif config_overrides:

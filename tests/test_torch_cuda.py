@@ -1,8 +1,10 @@
-"""The port on a CUDA card: the kernel against its plain version, the
-training slice (encode, train step, BatchNorm) against the CPU, and the
-data-parallel path (augmentation against the CPU, the streamed upload
-against the direct path, a one-rank NCCL step against the plain step, the
-dry run on two gloo ranks sharing the card).
+"""The port on a CUDA card: the NMS kernel and its IoU-mask pass against
+their plain versions (also from a scratch of all ones, and with the
+scratch kept per stream), the training slice
+(encode, train step, BatchNorm) against the CPU, and the data-parallel path
+(augmentation against the CPU, the streamed upload against the direct path,
+a one-rank NCCL step against the plain step, the dry run on two gloo ranks
+sharing the card).
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither JAX nor the JAX package, so it also runs on a machine with
@@ -18,6 +20,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
+from chip_smoke import random_lanes
 from ssd_keras_torch import SSDConfig, SSDInputEncoder, SSDLoss, SSDPredictor, ssd_7, ssd_300
 from ssd_keras_torch import train as T
 from ssd_keras_torch.data import SynthVOC
@@ -27,7 +30,7 @@ from ssd_keras_torch.decoder import decode_detections_fast_fixed, decode_detecti
 from ssd_keras_torch.encoder import pad_labels
 from ssd_keras_torch.kernels import nms as nms_kernel
 from ssd_keras_torch.models import ssd7_predictor_sizes, ssd300_predictor_sizes
-from ssd_keras_torch.ops.nms import greedy_nms_mask
+from ssd_keras_torch.ops.nms import greedy_nms_mask, iou_suppression_mask, words_read
 from ssd_keras_torch.parallel import sharding as sh
 from ssd_keras_torch.parallel.dryrun import dryrun_multichip
 
@@ -43,27 +46,23 @@ def cuda():
     return torch.device("cuda")
 
 
-def _lanes(seed, lanes, k, prefix):
-    """(L, K, 4) overlapping corner boxes in a 300x300 frame, (L, K) valid."""
-    rng = np.random.RandomState(seed)
-    centre = rng.rand(lanes, k, 2) * 300
-    half = (10 + rng.rand(lanes, k, 2) * 90) / 2
-    boxes = np.concatenate([centre - half, centre + half], axis=-1).astype(np.float32)
-    if prefix:
-        valid = np.arange(k)[None, :] < rng.randint(k // 2, k + 1, size=(lanes, 1))
-    else:
-        valid = rng.rand(lanes, k) > 0.4
-        valid[::7] = False  # empty lanes
-    return boxes, valid
+def _lanes(seed, lanes, k, kind):
+    """``chip_smoke.random_lanes`` from ``seed``: the lanes phase 3 of the
+    smoke run checks the kernel on."""
+    return random_lanes(np.random.RandomState(seed), lanes, k, kind)
 
 
-@pytest.mark.parametrize(
-    "lanes, k, prefix, d",
-    [(160, 400, True, 0.0), (640, 400, False, 1.0), (8, 400, True, -1.0),
-     (3, 37, False, 0.0), (2, 3000, True, 0.0)],  # K past 48 KB of shared memory
-)
-def test_kernel_equals_plain(cuda, lanes, k, prefix, d):
-    boxes, valid = _lanes(0, lanes, k, prefix)
+_KERNEL_CASES = [
+    (160, 400, "prefix", 0.0), (640, 400, "random", 1.0), (8, 400, "prefix", -1.0),
+    (3, 37, "random", 0.0), (2, 3000, "prefix", 0.0),  # 47 words a row, 1128 tiles a lane
+    (16, 64, "random", 1.0), (16, 65, "prefix", 0.0),  # one word, and one bit past it
+    (160, 400, "sparse", 0.0), (24, 400, "hard", 0.0), (24, 65, "hard", -1.0),
+]
+
+
+@pytest.mark.parametrize("lanes, k, kind, d", _KERNEL_CASES)
+def test_kernel_equals_plain(cuda, lanes, k, kind, d):
+    boxes, valid = _lanes(0, lanes, k, kind)
     b, v = torch.from_numpy(boxes).to(cuda), torch.from_numpy(valid).to(cuda)
     before = nms_kernel.launches
     got = nms_kernel.greedy_nms_mask_batched(b, v, 0.45, d)
@@ -71,6 +70,57 @@ def test_kernel_equals_plain(cuda, lanes, k, prefix, d):
     assert nms_kernel.launches == before + 1
     assert torch.equal(got, greedy_nms_mask(b, v, 0.45, d))
     assert torch.equal(got.cpu(), greedy_nms_mask(torch.from_numpy(boxes), torch.from_numpy(valid), 0.45, d))
+
+
+@pytest.mark.parametrize("lanes, k, kind, d", _KERNEL_CASES)
+def test_iou_mask_equals_plain_on_the_words_pass_b_reads(cuda, lanes, k, kind, d):
+    boxes, valid = _lanes(1, lanes, k, kind)
+    b, v = torch.from_numpy(boxes).to(cuda), torch.from_numpy(valid).to(cuda)
+    before = nms_kernel.launches
+    got = nms_kernel.iou_mask(b, v, 0.45, d)
+    torch.cuda.synchronize()
+    assert nms_kernel.launches == before  # not a launch of the main path
+    read = words_read(v)
+    assert torch.equal(got[read], iou_suppression_mask(b, v, 0.45, d)[read])
+
+
+def test_kernel_reads_no_unwritten_scratch_word(cuda, monkeypatch):
+    """Pass B reads only the words pass A writes: a scratch that holds all
+    ones before each call gives the same keep mask."""
+    scratch = nms_kernel._scratch
+    monkeypatch.setattr(nms_kernel, "_scratch", lambda *a: scratch(*a).fill_(-1))
+    for lanes, k, kind, d in [(160, 400, "random", 0.0), (24, 65, "hard", 1.0),
+                              (160, 400, "sparse", 0.0)]:
+        boxes, valid = _lanes(2, lanes, k, kind)
+        b, v = torch.from_numpy(boxes).to(cuda), torch.from_numpy(valid).to(cuda)
+        assert torch.equal(nms_kernel.greedy_nms_mask_batched(b, v, 0.45, d),
+                           greedy_nms_mask(b, v, 0.45, d))
+
+
+def test_scratch_is_kept_per_stream(cuda):
+    """Calls on one stream reuse its scratch, grown to the largest call; a
+    call on another stream gets its own. Each call's keep mask still equals
+    the plain version after a larger call left its words in the scratch."""
+    shapes = [(8, 400, "prefix"), (160, 400, "random"), (8, 400, "hard")]
+    lanes = [tuple(torch.from_numpy(a).to(cuda) for a in _lanes(3, *s)) for s in shapes]
+    index = cuda.index if cuda.index is not None else torch.cuda.current_device()
+
+    def scratch_ptr():
+        return nms_kernel._scratches[index, nms_kernel._stream(index)].data_ptr()
+
+    ptrs = []
+    for b, v in lanes:
+        assert torch.equal(nms_kernel.greedy_nms_mask_batched(b, v), greedy_nms_mask(b, v, 0.45))
+        ptrs.append(scratch_ptr())
+    assert ptrs[1] == ptrs[2]  # the L = 160 scratch serves the smaller call after it
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        b, v = lanes[1]
+        keep = nms_kernel.greedy_nms_mask_batched(b, v)
+        assert scratch_ptr() != ptrs[2]
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    assert torch.equal(keep, greedy_nms_mask(b, v, 0.45))
 
 
 def test_kernel_on_empty_lanes_launches_nothing(cuda):
@@ -149,7 +199,8 @@ def _synthvoc(n, max_gt=8):
 def _seeded_ssd300_state():
     """Seeded SSD300 weights, conv1_1 x 1/100 and loc heads x 1/4 (see
     chip_smoke.seeded_state)."""
-    model, _ = ssd_300(SSDConfig.ssd300(), generator=torch.Generator().manual_seed(0))
+    model, _ = ssd_300(SSDConfig.ssd300(), generator=torch.Generator().manual_seed(0),
+                       device="cpu")
     with torch.no_grad():
         model.conv1_1.weight.mul_(0.01)
         for name, module in model.named_children():
@@ -182,7 +233,8 @@ def test_encode_on_card_equals_cpu(cuda):
     got = SSDInputEncoder(cfg, sizes, max_gt_boxes=8, device=cuda).encode_padded(
         torch.from_numpy(padded).to(cuda), torch.from_numpy(counts).to(cuda))
     assert got.device.type == "cuda" and got.shape == (8, 8732, 33)
-    expected = SSDInputEncoder(cfg, sizes, max_gt_boxes=8).encode_padded(padded, counts)
+    expected = SSDInputEncoder(cfg, sizes, max_gt_boxes=8, device="cpu").encode_padded(
+        padded, counts)
     got = got.cpu()
     assert torch.equal(got[..., :21], expected[..., :21])
     assert torch.equal(got[..., -8:], expected[..., -8:])
@@ -193,8 +245,8 @@ def test_encode_on_card_equals_cpu(cuda):
 def test_ssd300_sgd_step_on_card_matches_cpu(cuda, no_tf32):
     images, padded, counts = _synthvoc(2)
     cfg = SSDConfig.ssd300()
-    y = SSDInputEncoder(cfg, ssd300_predictor_sizes(300, 300), max_gt_boxes=8).encode_padded(
-        padded, counts)
+    y = SSDInputEncoder(cfg, ssd300_predictor_sizes(300, 300), max_gt_boxes=8,
+                        device="cpu").encode_padded(padded, counts)
     x = torch.from_numpy(images.astype(np.float32))
     state = _seeded_ssd300_state()
 
@@ -231,11 +283,11 @@ def test_ssd7_batchnorm_statistics_card_equals_cpu(cuda, no_tf32):
     """SSD7 trains with batch statistics and moves its running statistics
     the flax way: the same on the card as on the CPU."""
     cfg = SSDConfig.ssd7(n_classes=3, img_height=64, img_width=64)
-    model, sizes = ssd_7(cfg, generator=torch.Generator().manual_seed(0))
+    model, sizes = ssd_7(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     state = model.state_dict()
     rng = np.random.RandomState(0)
     labels = [np.array([[1 + i % 3, 5.5 + i, 7.25, 40.5, 50.0 - i]]) for i in range(4)]
-    y = torch.from_numpy(SSDInputEncoder(cfg, sizes, max_gt_boxes=4)(labels))
+    y = torch.from_numpy(SSDInputEncoder(cfg, sizes, max_gt_boxes=4, device="cpu")(labels))
     x = torch.from_numpy(rng.rand(4, 64, 64, 3).astype(np.float32) * 255)
 
     def build(**kw):
@@ -301,10 +353,10 @@ def test_streamed_upload_equals_the_direct_path(cuda):
 
 def test_one_rank_nccl_dp_step_equals_the_plain_step(cuda, no_tf32, tmp_path):
     cfg = SSDConfig.ssd7(n_classes=3, img_height=64, img_width=64)
-    model, sizes = ssd_7(cfg, generator=torch.Generator().manual_seed(0))
+    model, sizes = ssd_7(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     state = model.state_dict()
     labels = [np.array([[1 + i % 3, 5.5 + i, 7.25, 40.5, 50.0 - i]]) for i in range(4)]
-    y = torch.from_numpy(SSDInputEncoder(cfg, sizes, max_gt_boxes=4)(labels)).to(cuda)
+    y = torch.from_numpy(SSDInputEncoder(cfg, sizes, max_gt_boxes=4, device="cpu")(labels)).to(cuda)
     x = torch.from_numpy(np.random.RandomState(0).rand(4, 64, 64, 3).astype(np.float32) * 255)
     x = x.to(cuda)
 

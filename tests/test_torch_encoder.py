@@ -90,7 +90,8 @@ def test_encoder_call_and_diagnostics_equal_jax():
     """The ragged entry point with an empty image, and ``diagnostics``."""
     cfg, jax_cfg, sizes, size = _configs("ssd7", "centroids", "multi")
     labels = _labels(1, size, cfg.n_classes, [2, 0, 5])
-    y, y_matched = SSDInputEncoder(cfg, sizes, max_gt_boxes=MAX_GT)(labels, diagnostics=True)
+    y, y_matched = SSDInputEncoder(cfg, sizes, max_gt_boxes=MAX_GT, device="cpu")(
+        labels, diagnostics=True)
     exp, exp_matched = jax_encoder.SSDInputEncoder(jax_cfg, sizes, max_gt_boxes=MAX_GT)(
         labels, diagnostics=True)
     _assert_targets_equal(y, exp, cfg.n_classes_with_background)
@@ -101,7 +102,7 @@ def test_encoder_call_and_diagnostics_equal_jax():
 
 def test_encode_padded_takes_and_returns_tensors():
     cfg, _, sizes, size = _configs("ssd7", "centroids", "multi")
-    encoder = SSDInputEncoder(cfg, sizes, max_gt_boxes=MAX_GT)
+    encoder = SSDInputEncoder(cfg, sizes, max_gt_boxes=MAX_GT, device="cpu")
     labels = _labels(2, size, cfg.n_classes, [4, 1])
     padded, counts = pad_labels(labels, MAX_GT)
     got = encoder.encode_padded(torch.from_numpy(padded), torch.from_numpy(counts))
@@ -112,7 +113,7 @@ def test_encode_padded_takes_and_returns_tensors():
 @pytest.mark.parametrize("bad_class", [0, 6, -1])
 def test_class_ids_outside_range_raise(bad_class):
     cfg, _, sizes, _ = _configs("ssd7", "centroids", "multi")
-    encoder = SSDInputEncoder(cfg, sizes, max_gt_boxes=MAX_GT)
+    encoder = SSDInputEncoder(cfg, sizes, max_gt_boxes=MAX_GT, device="cpu")
     with pytest.raises(ValueError, match="class IDs"):
         encoder([np.array([[bad_class, 1.0, 1.0, 20.0, 20.0]])])
 
@@ -120,7 +121,7 @@ def test_class_ids_outside_range_raise(bad_class):
 @pytest.mark.parametrize("box", [[10.0, 10.0, 10.0, 20.0], [10.0, 20.0, 30.0, 5.0]])
 def test_degenerate_boxes_raise(box):
     cfg, _, sizes, _ = _configs("ssd7", "centroids", "multi")
-    encoder = SSDInputEncoder(cfg, sizes, max_gt_boxes=MAX_GT)
+    encoder = SSDInputEncoder(cfg, sizes, max_gt_boxes=MAX_GT, device="cpu")
     with pytest.raises(DegenerateBoxError):
         encoder([np.array([[1.0] + box])])
 

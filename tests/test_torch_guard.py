@@ -1,6 +1,8 @@
-"""Guards of the PyTorch port: a clean import, the kernel build's flags, and
-no silent fallback when the kernel cannot be built or launched."""
+"""Guards of the PyTorch port: a clean import, the kernel build's flags, no
+silent fallback when the kernel cannot be built or launched, and builders
+that default to the card and raise without one."""
 
+import inspect
 import os
 import subprocess
 import sys
@@ -9,8 +11,11 @@ from pathlib import Path
 import pytest
 import torch
 
+from ssd_keras_torch import SSDConfig, SSDInputEncoder, ssd_7, ssd_300
 from ssd_keras_torch.kernels import build
 from ssd_keras_torch.kernels import nms as nms_kernel
+from ssd_keras_torch.models import ssd7 as ssd7_module
+from ssd_keras_torch.models import ssd300 as ssd300_module
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -99,3 +104,30 @@ def test_kernel_source_is_where_the_build_looks():
     assert (build.CSRC_DIR / "nms.cu").is_file()
     assert [p.name for p in build._sources()] == ["nms.cu"]
     assert os.path.basename(build.BUILD_DIR) == "_build"
+
+
+_BUILDERS = {
+    "ssd_300": lambda: ssd_300(SSDConfig.ssd300()),
+    "ssd_7": lambda: ssd_7(SSDConfig.ssd7(n_classes=3, img_height=64, img_width=64)),
+    "SSDInputEncoder": lambda: SSDInputEncoder(
+        SSDConfig.ssd7(n_classes=3, img_height=64, img_width=64), [(8, 8)]),
+}
+
+
+@pytest.mark.parametrize("builder", [ssd_300, ssd_7, SSDInputEncoder.__init__],
+                         ids=["ssd_300", "ssd_7", "SSDInputEncoder"])
+def test_builders_default_to_the_card(builder):
+    assert inspect.signature(builder).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("name", sorted(_BUILDERS))
+def test_builder_without_a_card_raises_and_builds_nothing(name, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default builds there")
+    built = []
+    monkeypatch.setattr(ssd300_module, "SSD300", lambda *a, **k: built.append("SSD300"))
+    monkeypatch.setattr(ssd7_module, "SSD7", lambda *a, **k: built.append("SSD7"))
+    monkeypatch.setattr(SSDConfig, "anchor_tensor", lambda *a, **k: built.append("anchors"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _BUILDERS[name]()
+    assert built == []

@@ -28,7 +28,7 @@ RTOL = 1e-5
 
 def _batch(seed, ties=False, no_positives=False):
     cfg = SSDConfig.ssd7(n_classes=5, img_height=64, img_width=64)
-    encoder = SSDInputEncoder(cfg, ssd7_predictor_sizes(64, 64), max_gt_boxes=8)
+    encoder = SSDInputEncoder(cfg, ssd7_predictor_sizes(64, 64), max_gt_boxes=8, device="cpu")
     rng = np.random.RandomState(seed)
     labels = []
     for _ in range(3):

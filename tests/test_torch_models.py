@@ -62,7 +62,7 @@ def test_predictor_sizes_equal_jax(hw):
 def test_flax_conversion_round_trips(ssd300_shared):
     _, params, _ = ssd300_shared
     state = from_flax_params(params)
-    model, _ = ssd_300(SSDConfig.ssd300(n_classes=20))
+    model, _ = ssd_300(SSDConfig.ssd300(n_classes=20), device="cpu")
     assert set(state) == set(model.state_dict())
     model.load_state_dict(state)  # strict: every key and shape matches
     assert state["fc6.weight"].shape == (1024, 512, 3, 3)
@@ -83,7 +83,7 @@ def test_ssd300_y_pred_matches_flax(ssd300_shared):
     tests/test_models.py:150-153); a wrong layer errs by orders more."""
     flax_model, params, x = ssd300_shared
     expected = np.asarray(flax_model.apply({"params": params}, x))
-    model, _ = ssd_300(SSDConfig.ssd300(n_classes=20))
+    model, _ = ssd_300(SSDConfig.ssd300(n_classes=20), device="cpu")
     model.load_state_dict(from_flax_params(params))
     with torch.no_grad():
         got = model(torch.from_numpy(x)).numpy()
@@ -174,12 +174,12 @@ def test_unknown_mode_raises():
     with pytest.raises(ValueError, match="mode"):
         validate_mode("bogus")
     with pytest.raises(ValueError, match="mode"):
-        ssd_300(mode="bogus")
+        ssd_300(mode="bogus", device="cpu")
 
 
 def test_seeded_init_is_reproducible_across_builds():
-    a, _ = ssd_300(generator=torch.Generator().manual_seed(7))
-    b, _ = ssd_300(generator=torch.Generator().manual_seed(7))
+    a, _ = ssd_300(generator=torch.Generator().manual_seed(7), device="cpu")
+    b, _ = ssd_300(generator=torch.Generator().manual_seed(7), device="cpu")
     for (name, pa), pb in zip(a.state_dict().items(), b.state_dict().values()):
         assert torch.equal(pa, pb), name
     assert torch.all(a.conv4_3_norm.gamma == 20.0)
@@ -187,7 +187,8 @@ def test_seeded_init_is_reproducible_across_builds():
 
 def _ssd7_bf16(seed):
     model, _ = ssd_7(SSDConfig.ssd7(n_classes=3, img_height=64, img_width=64),
-                     compute_dtype=torch.bfloat16, generator=torch.Generator().manual_seed(seed))
+                     compute_dtype=torch.bfloat16, generator=torch.Generator().manual_seed(seed),
+                     device="cpu")
     return model
 
 
@@ -242,7 +243,7 @@ def test_bf16_compute_keeps_f32_master_weights():
     from ssd_keras_torch.train import make_train_step, sgd_with_momentum
 
     model, _ = ssd_300(SSDConfig.ssd300(n_classes=20), compute_dtype=torch.bfloat16,
-                       generator=torch.Generator().manual_seed(0))
+                       generator=torch.Generator().manual_seed(0), device="cpu")
     assert all(p.dtype == torch.float32 for p in model.parameters())
     with torch.no_grad():
         model.conv1_1.weight.mul_(0.01)

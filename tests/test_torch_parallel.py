@@ -109,7 +109,7 @@ def runs():
     _, jax_metrics = jax_train.make_train_step(jax_model, JaxSSDLoss(), l2_reg=L2, donate=False)(
         state, jnp.asarray(images), jnp.asarray(y_true))
 
-    model, _ = ssd_7(SSDConfig.ssd7(**KW))
+    model, _ = ssd_7(SSDConfig.ssd7(**KW), device="cpu")
     model.load_state_dict(init)
     opt = T.sgd_with_momentum(model.parameters(), LR, 0.9, clipnorm=CLIPNORM)
     one = T.make_train_step(model, opt, SSDLoss(), l2_reg=L2)(
@@ -239,8 +239,8 @@ def test_batch_statistics_stay_local_outside_the_dp_step(tmp_path):
     group is gone, a forward in training mode uses the module's own rows."""
     cfg = SSDConfig.ssd7(**KW)
     images, y_true = (torch.from_numpy(a[:4]) for a in _batch())
-    model, _ = ssd_7(cfg, generator=torch.Generator().manual_seed(0))
-    plain, _ = ssd_7(cfg)
+    model, _ = ssd_7(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    plain, _ = ssd_7(cfg, device="cpu")
     plain.load_state_dict(model.state_dict())
     sh.initialize_distributed("gloo", 1, 0,
                               store=torch.distributed.FileStore(str(tmp_path / "store"), 1))
@@ -264,7 +264,7 @@ def test_trainer_off_rank_0_writes_no_checkpoint_and_no_log(tmp_path):
         def get_local_rank(self, dim=None):
             return 1
 
-    model, _ = ssd_7(SSDConfig.ssd7(**KW))
+    model, _ = ssd_7(SSDConfig.ssd7(**KW), device="cpu")
     opt = T.sgd_with_momentum(model.parameters(), LR)
     trainer = T.Trainer(model, opt, train_step=None, mesh=Rank1())
     assert not trainer.is_writer

@@ -44,7 +44,7 @@ def shared():
 
 
 def _port_model(params, mode="inference"):
-    model, _ = ssd_300(SSDConfig.ssd300(n_classes=20), mode=mode)
+    model, _ = ssd_300(SSDConfig.ssd300(n_classes=20), mode=mode, device="cpu")
     model.load_state_dict(from_flax_params(params))
     return model
 
@@ -92,7 +92,7 @@ def test_h5_written_by_jax_loads_into_port(shared, tmp_path):
     path = str(tmp_path / "ssd300.h5")
     jax_weights_io.save_keras_h5_weights(path, params)
     model, _ = ssd_300(SSDConfig.ssd300(n_classes=20), mode="training",
-                       generator=torch.Generator().manual_seed(3))
+                       generator=torch.Generator().manual_seed(3), device="cpu")
     loaded = load_keras_h5_weights(path, model, on_unconsumed="raise")
     assert sorted(loaded) == sorted(params) and len(loaded) == 36
     reference = _port_model(params, mode="training")
@@ -179,6 +179,6 @@ def test_predictor_host_resize_and_filter(shared):
 
 
 def test_predictor_rejects_training_model():
-    model, _ = ssd_300(SSDConfig.ssd300(n_classes=4), mode="training")
+    model, _ = ssd_300(SSDConfig.ssd300(n_classes=4), mode="training", device="cpu")
     with pytest.raises(ValueError, match="inference"):
         SSDPredictor(model)

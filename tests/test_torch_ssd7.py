@@ -54,7 +54,7 @@ def shared():
 
 
 def _port(kw, params, stats, **build):
-    model, _ = ssd_7(SSDConfig.ssd7(**kw), **build)
+    model, _ = ssd_7(SSDConfig.ssd7(**kw), **build, device="cpu")
     model.load_state_dict(from_flax_params(params, stats))
     return model
 
@@ -132,7 +132,7 @@ def test_bf16_compute_keeps_f32_statistics(shared):
 def test_flax_conversion_round_trips_with_batch_stats(shared):
     kw, params, stats, _ = shared
     state = from_flax_params(params, stats)
-    model, _ = ssd_7(SSDConfig.ssd7(**kw))
+    model, _ = ssd_7(SSDConfig.ssd7(**kw), device="cpu")
     assert set(state) == set(model.state_dict())
     model.load_state_dict(state)  # strict: every key and shape matches
     assert state["bn3.weight"].shape == state["bn3.running_var"].shape == (64,)
@@ -152,7 +152,7 @@ def test_h5_with_batchnorm_written_by_jax_loads_into_port(shared, tmp_path):
     kw, params, stats, x = shared
     path = str(tmp_path / "ssd7.h5")
     jax_weights_io.save_keras_h5_weights(path, params, stats)
-    model, _ = ssd_7(SSDConfig.ssd7(**kw), generator=torch.Generator().manual_seed(3))
+    model, _ = ssd_7(SSDConfig.ssd7(**kw), generator=torch.Generator().manual_seed(3), device="cpu")
     loaded = load_keras_h5_weights(path, model, on_unconsumed="raise")
     assert sorted(loaded) == sorted(params) and len(loaded) == 22
     with torch.no_grad():

@@ -45,7 +45,7 @@ def _host_batches(n, batch=4, seed=0):
 
 def _pipeline():
     return (DeviceSSDAugmentation(64, 64),
-            SSDInputEncoder(CFG, ssd7_predictor_sizes(64, 64), max_gt_boxes=MAX_GT))
+            SSDInputEncoder(CFG, ssd7_predictor_sizes(64, 64), max_gt_boxes=MAX_GT, device="cpu"))
 
 
 @pytest.mark.parametrize("n_workers", [1, 3])

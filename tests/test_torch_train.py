@@ -87,7 +87,7 @@ def _labels(rng, batch):
 def setup():
     """(flax SSD7, two encoder-made batches of 4)."""
     jax_model, sizes = jax_ssd_7(JaxSSDConfig.ssd7(**KW), s2d_trunk=False)
-    encoder = SSDInputEncoder(SSDConfig.ssd7(**KW), sizes, max_gt_boxes=8)
+    encoder = SSDInputEncoder(SSDConfig.ssd7(**KW), sizes, max_gt_boxes=8, device="cpu")
     rng = np.random.RandomState(0)
     batches = [(rng.rand(4, 64, 64, 3).astype(np.float32) * 255, encoder(_labels(rng, 4)))
                for _ in range(2)]
@@ -99,7 +99,7 @@ def _jax_state(jax_model, batches, tx):
 
 
 def _port_model(state, compute_dtype=torch.float32):
-    model, _ = ssd_7(SSDConfig.ssd7(**KW), compute_dtype=compute_dtype)
+    model, _ = ssd_7(SSDConfig.ssd7(**KW), compute_dtype=compute_dtype, device="cpu")
     model.load_state_dict(from_flax_params(_tree(state.params), _tree(state.batch_stats)))
     return model
 
@@ -308,7 +308,7 @@ def toy():
 
 def _trainer(compute_dtype=torch.float32, lr=1e-3):
     model, _ = ssd_7(SSDConfig.ssd7(**KW), compute_dtype=compute_dtype,
-                     generator=torch.Generator().manual_seed(0))
+                     generator=torch.Generator().manual_seed(0), device="cpu")
     opt = T.sgd_with_momentum(model.parameters(), lr)
     step = T.make_train_step(model, opt, SSDLoss(), l2_reg=1e-4)
     return T.Trainer(model, opt, step, T.make_eval_step(model, SSDLoss()), base_lr=1e-3)

@@ -36,7 +36,8 @@ def test_ssd300_train_step_equals_jax():
     image, labels = SynthVOC(1, image_size=300, seed=0).render(0)
     x = image[None].astype(np.float32)
     jax_model, sizes = jax_ssd_300(JaxSSDConfig.ssd300(n_classes=20))
-    y = SSDInputEncoder(SSDConfig.ssd300(n_classes=20), sizes, max_gt_boxes=8)([labels])
+    y = SSDInputEncoder(SSDConfig.ssd300(n_classes=20), sizes, max_gt_boxes=8,
+                        device="cpu")([labels])
     assert y.shape == (1, 8732, 33) and y[..., 1:21].sum() >= len(labels)
 
     tx = jax_train.sgd_with_momentum(LR, 0.9, clipnorm=5.0)
@@ -47,7 +48,7 @@ def test_ssd300_train_step_equals_jax():
     jax_step = jax_train.make_train_step(jax_model, JaxSSDLoss(), l2_reg=5e-4, donate=False)
     state, expected = jax_step(state, jnp.asarray(x), jnp.asarray(y))
 
-    model, _ = ssd_300(SSDConfig.ssd300(n_classes=20))
+    model, _ = ssd_300(SSDConfig.ssd300(n_classes=20), device="cpu")
     model.load_state_dict(from_flax_params(params))
     opt = T.sgd_with_momentum(model.parameters(), LR, 0.9, clipnorm=5.0)
     got = T.make_train_step(model, opt, SSDLoss(), l2_reg=5e-4)(torch.from_numpy(x), torch.from_numpy(y))
