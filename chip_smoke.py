@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SSD300 serving and training paths on one CUDA card.
+"""Drive the PyTorch port's serving, training and evaluation paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -63,6 +63,25 @@ Phases, in order; the first failure raises and the script exits non-zero:
    batch of 32, and the resident and streamed train img/s beside the DP step
    and the plain step on batches already on the card (the plain, DP and
    resident steps interleaved in rounds).
+9. Evaluation. (a) SSD512 VOC at full width from seeded weights: f32 y_pred
+   on the card against the CPU at batch 1 (Y_PRED_TOL), 'inference' at f32
+   and bf16 batch 8 (in frame, the NMS kernel launched, no host sync), the
+   decode of one y_pred card against CPU, the kernel against its plain
+   version on SSD512's own lanes with its time and bound, and img/s at bf16
+   and f32. (b) The ``Evaluator`` over 64 SynthVOC images (300x300, batches
+   of 8): an oracle model (the encoder's targets, decoded on the card) must
+   reach mAP >= 0.95; a noisy oracle (``noisy_oracle``) must give the same
+   mAP on the card and on the CPU and within 0.01 of the host decoder, and
+   again with no host sync outside the drain's wait; SSD300 'training' with
+   the device decode and SSD512 'inference' (the host resize 300 -> 512)
+   give a finite mAP in [0, 1] with one NMS launch a batch; the evaluator's
+   img/s (host clock, whole call) and the card's busy share
+   (``torch.profiler``). (c) ``predict_all_to_json`` with SSD300 COCO-81
+   'inference' over 16 images (the kernel on 8 x 80 lanes a batch), then
+   ``COCOEvalBBox``'s 12 stats against the same labels. (d) Folding: SSD7
+   with its BatchNorms folded and SSD300 with its preprocessing folded equal
+   the unfolded models (f32 y_pred within FOLD_TOL, SSD7's detections
+   matched), and their bf16 batch-8 times beside the unfolded ones.
 
 It prints JSON lines (timings, then the kernels line), then as its last line
 ``{"ok": true, "device": {...}}``. With no CUDA device it raises before
@@ -83,7 +102,17 @@ import torch
 
 import torch.distributed as dist
 
-from ssd_keras_torch import SSDConfig, SSDInputEncoder, SSDLoss, SSDPredictor, ssd_300
+from ssd_keras_torch import (
+    SSDConfig,
+    SSDInputEncoder,
+    SSDLoss,
+    SSDPredictor,
+    fold_batchnorm,
+    fold_preprocessing,
+    ssd_7,
+    ssd_300,
+    ssd_512,
+)
 from ssd_keras_torch import decoder
 from ssd_keras_torch import train as T
 from ssd_keras_torch.data import SynthVOC
@@ -91,6 +120,8 @@ from ssd_keras_torch.data.device_aug import DeviceSSDAugmentation, batch_seed, g
 from ssd_keras_torch.data.streaming import StreamingDeviceInput
 from ssd_keras_torch.decoder import decode_detections_fixed
 from ssd_keras_torch.encoder import pad_labels
+from ssd_keras_torch.eval import COCOEvalBBox, Evaluator, predict_all_to_json
+from ssd_keras_torch.eval.evaluator import HostCopy
 from ssd_keras_torch.kernels import build
 from ssd_keras_torch.kernels import nms as nms_kernel
 from ssd_keras_torch.models import ssd300_predictor_sizes
@@ -181,6 +212,27 @@ STEP_ROUNDS = 8
 # says the positions are equal. Boxes take a few f32 multiplies and adds.
 AUG_PIXEL_TOL = 1e-2
 AUG_BOX_TOL = 1e-3
+# Phase 9: evaluation over 64 SynthVOC images at 300x300 in batches of 8,
+# the COCO tools over 16 of them.
+EVAL_IMAGES = 64
+EVAL_BATCH = 8
+COCO_IMAGES = 16
+# The oracle (the encoder's own targets as predictions) finds every object;
+# only same-class objects overlapping past the NMS threshold suppress each
+# other, which keeps its mAP just under 1.
+ORACLE_MAP_MIN = 0.95
+# The noisy oracle's mAP on the card and on the CPU (plain NMS): every NMS
+# and threshold decision falls alike and the host code is the same, so the
+# mAPs agree to rounding.
+EVAL_CARD_CPU_TOL = 1e-6
+# The device decoder against the host decoder: its candidate pool (the top
+# 512 boxes by class score, then 400 a class) is its one approximation.
+EVAL_HOST_DECODE_TOL = 0.01
+# Folded against unfolded models, f32 on the card: the BN scale and 1/std
+# are rounded into the f32 kernels before the sums instead of applied after.
+FOLD_TOL = 1e-4
+# Interleaved rounds of the folded/unfolded timings.
+FOLD_ROUNDS = 10
 
 
 def log(msg):
@@ -197,22 +249,29 @@ def card_info():
     return out[0]
 
 
-def model_for(state, mode, dtype, device):
-    """SSD300 VOC in ``mode`` holding ``state`` (f32 CPU), cast and moved."""
-    model, _ = ssd_300(SSDConfig.ssd300(), mode=mode, compute_dtype=dtype, device=device)
+BUILDERS = {"ssd300": (ssd_300, SSDConfig.ssd300), "ssd512": (ssd_512, SSDConfig.ssd512)}
+
+
+def model_for(state, mode, dtype, device, arch="ssd300", config=None):
+    """``arch`` (SSD300 or SSD512; Pascal VOC unless ``config`` says
+    otherwise) in ``mode`` holding ``state`` (f32 CPU), cast and moved."""
+    build_model, default_config = BUILDERS[arch]
+    model, _ = build_model(config or default_config(), mode=mode, compute_dtype=dtype,
+                           device=device)
     model.load_state_dict(state)
     return model
 
 
-def seeded_state():
+def seeded_state(arch="ssd300", config=None):
     """Weights from a seeded generator, scaled into a trained detector's
     output range. He init carries the raw 0-255 input's magnitude (~75 RMS)
     through the trunk, which saturates the softmax at exactly 1.0 and
     overflows the box exponent: conv1_1 at 1/100 brings the logits to O(1).
     The loc heads at 1/4 then give encoded offsets of ~0.4 RMS, so every
     decoded box stays near its anchor, as a trained model's do."""
-    model, _ = ssd_300(SSDConfig.ssd300(), generator=torch.Generator().manual_seed(SEED),
-                       device="cpu")
+    build_model, default_config = BUILDERS[arch]
+    model, _ = build_model(config or default_config(),
+                           generator=torch.Generator().manual_seed(SEED), device="cpu")
     with torch.no_grad():
         model.conv1_1.weight.mul_(0.01)
         for name, module in model.named_children():
@@ -310,21 +369,30 @@ def nms_kernel_vs_plain(device):
     return max_err
 
 
-def record_nms_inputs(model, x):
-    """The (boxes, valid) that the decoder hands the NMS kernel in one call
-    of ``model(x)``, recorded by wrapping ``decoder.greedy_nms_mask_batched``."""
+@contextlib.contextmanager
+def nms_inputs_recorded(keep=True):
+    """Yields a list that collects, per call, what the decoder hands the NMS
+    kernel (``(boxes, valid)`` clones, or with ``keep=False`` their shapes),
+    recorded by wrapping ``decoder.greedy_nms_mask_batched``."""
     seen = []
     inner = decoder.greedy_nms_mask_batched
 
     def record(boxes, valid, *args):
-        seen.append((boxes.clone(), valid.clone()))
+        seen.append((boxes.clone(), valid.clone()) if keep else tuple(valid.shape))
         return inner(boxes, valid, *args)
 
     decoder.greedy_nms_mask_batched = record
     try:
-        model(x)
+        yield seen
     finally:
         decoder.greedy_nms_mask_batched = inner
+
+
+def record_nms_inputs(model, x):
+    """The (boxes, valid) that the decoder hands the NMS kernel in one call
+    of ``model(x)``."""
+    with nms_inputs_recorded() as seen:
+        model(x)
     if len(seen) != 1:
         raise AssertionError(f"one decode called the NMS kernel {len(seen)} times")
     return seen[0]
@@ -932,6 +1000,379 @@ def dp_phase(state, device, card, step_ms_phase7):
                        **{f"dp_decode_gloo_rank{r}": n for r, n in enumerate(rank_launches)})
 
 
+def noisy_oracle(y_true, seed):
+    """A detector's-like 'training'-mode stream from encoded targets
+    ``y_true`` (N, boxes, C + 12) numpy f32: each class column becomes a
+    softmax of 8 x the one-hot plus unit seeded noise (a matched anchor keeps
+    a score near 1, a background anchor gives a foreground class more than
+    0.01 about 1% of the time), and the encoded offsets get unit noise (a
+    centre moved by ~0.1 of the anchor's size, a size scaled by ~e^0.2), so
+    that some kept boxes miss their object at IoU 0.5 and some objects are
+    found twice."""
+    rng = np.random.RandomState(seed)
+    y = np.array(y_true, dtype=np.float32)
+    n_cls = y.shape[-1] - 12
+    logits = 8.0 * y[..., :n_cls] + rng.randn(*y.shape[:2], n_cls)
+    e = np.exp(logits - logits.max(-1, keepdims=True))
+    y[..., :n_cls] = e / e.sum(-1, keepdims=True)
+    y[..., n_cls:n_cls + 4] += rng.randn(*y.shape[:2], 4)
+    return y
+
+
+class StreamModel:
+    """A 'model' that returns the next rows of ``y`` at each call, in the
+    order the evaluator's unshuffled batches come."""
+
+    def __init__(self, y):
+        self.y, self.i = y, 0
+
+    def __call__(self, batch):
+        out = self.y[self.i:self.i + len(batch)]
+        if len(out) != len(batch):
+            raise AssertionError("the evaluator asked for more batches than the stream holds")
+        self.i += len(batch)
+        return out
+
+
+def evaluate(ev, size, device_decode=True, seconds=None):
+    """``Evaluator.__call__``'s steps at its defaults, with ``device_decode``.
+    With a ``seconds`` dict, the host clock's time of the predictions
+    (``predict``, of which ``generate`` in the data generator) and of the
+    matching and AP (``match_ap``) go there."""
+    spent = [0.0]
+    if seconds is not None:
+        inner = ev.data_generator.generate
+
+        def generate(*args, **kwargs):
+            batches = inner(*args, **kwargs)
+            while True:
+                t = time.perf_counter()
+                batch = next(batches)
+                spent[0] += time.perf_counter() - t
+                yield batch
+
+        ev.data_generator.generate = generate
+    t0 = time.perf_counter()
+    ev.predict_on_dataset(size, size, EVAL_BATCH, decoding_border_pixels="include",
+                          verbose=False, device_decode=device_decode)
+    t1 = time.perf_counter()
+    ev.get_num_gt_per_class(verbose=False)
+    ev.match_predictions(verbose=False)
+    ev.compute_precision_recall()
+    ev.compute_average_precisions()
+    mean_ap = ev.compute_mean_average_precision()
+    if seconds is not None:
+        del ev.data_generator.generate
+        seconds.update(predict=t1 - t0, generate=spent[0], match_ap=time.perf_counter() - t1)
+    return mean_ap
+
+
+@contextlib.contextmanager
+def sync_checked_outside_the_drain():
+    """torch.cuda sync debug mode 'error', except while the evaluator's drain
+    waits on a batch's event (the one wait it is meant to make)."""
+    wait = HostCopy.numpy
+
+    def waited(self):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return wait(self)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    HostCopy.numpy = waited
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        HostCopy.numpy = wait
+
+
+def busy_share(fn):
+    """(wall seconds, the card's busy share) of one call of ``fn``: the union
+    of the spans of the kernels and copies ``torch.profiler`` records, over
+    the host clock's span of the call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in spans:
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    return wall, (busy_us * 1e-6 / wall if busy_us > 0 else "not measured")
+
+
+def ssd512_part(device, card):
+    """Phase 9a: SSD512 VOC at full width. Returns (timing lines, NMS
+    launches of its 'inference' runs)."""
+    state = seeded_state("ssd512")
+    x_host = np.random.RandomState(SEED + 4).randint(0, 256, (BATCH, 512, 512, 3)).astype(
+        np.float32)
+    x = torch.from_numpy(x_host).to(device)
+    f32 = model_for(state, "inference", torch.float32, device, "ssd512")
+    bf16 = model_for(state, "inference", torch.bfloat16, device, "ssd512")
+    train = model_for(state, "training", torch.float32, device, "ssd512")
+
+    nms_kernel.launches = 0
+    dets = {"f32": f32(x), "bf16": bf16(x)}
+    torch.cuda.synchronize()
+    launches = nms_kernel.launches
+    for name, det in dets.items():
+        det = det.cpu().numpy()
+        rows = det[det[..., 1] > 0]
+        if det.shape != (BATCH, 200, 6) or len(rows) < BATCH:
+            raise AssertionError(f"SSD512 {name}: shape {det.shape}, {len(rows)} detections")
+        check_in_frame(f"SSD512 {name}", rows, 512, 512, 20)
+    log(f"SSD512 inference f32 and bf16 batch {BATCH}: NMS launches {launches}")
+    if launches < 2:
+        raise AssertionError("SSD512 inference did not launch the NMS kernel in each run")
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        bf16(x), f32(x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log("SSD512 inference: no host synchronisation (torch.cuda sync debug mode 'error')")
+
+    y_card = train(x)
+    y_cpu = model_for(state, "training", torch.float32, "cpu", "ssd512")(
+        torch.from_numpy(x_host[:1]))
+    y_err = float((y_card[:1].cpu() - y_cpu).abs().max())
+    log(f"SSD512 y_pred card f32 vs CPU, batch 1: max |diff| {y_err:.3g} (limit {Y_PRED_TOL})")
+    if y_cpu.shape != (1, 24564, 33) or y_err > Y_PRED_TOL:
+        raise AssertionError("SSD512 y_pred on the card differs from the CPU")
+    compare_detections(
+        f"SSD512 decode of one y_pred (batch {BATCH}), card vs CPU",
+        decode_detections_fixed(y_card, img_height=512, img_width=512).cpu().numpy(),
+        decode_detections_fixed(y_card.cpu(), img_height=512, img_width=512).numpy(), 0.0, 1e-3)
+
+    lines = nms_timings({"ssd512_main_path": record_nms_inputs(bf16, x)}, card)
+    for dtype_name, model in (("bf16", bf16), ("f32", f32)):
+        ms = summary(time_cuda(lambda: model(x), iters=20))
+        lines.append(dict(
+            metric="ssd512_inference_img_per_s", batch=BATCH, dtype=dtype_name,
+            img_per_s=BATCH * 1e3 / ms["median"],
+            img_per_s_runs=[BATCH * 1e3 / r for r in ms["runs"]], ms_per_batch=ms, card=card))
+    return lines, launches
+
+
+def evaluator_part(device, card):
+    """Phase 9b: the Evaluator over SynthVOC. Returns (lines, the NMS
+    launches of its runs on the card)."""
+    cfg = SSDConfig.ssd300()
+    images, labels = SynthVOC(EVAL_IMAGES, image_size=300, split="val", seed=SEED).materialize()
+
+    def generator():
+        return SynthVOC(EVAL_IMAGES, image_size=300, split="val",
+                        seed=SEED).as_data_generator(images, labels)
+
+    enc = SSDInputEncoder(cfg, ssd300_predictor_sizes(300, 300), max_gt_boxes=MAX_GT,
+                          device=device)
+    y_true = enc.encode_padded(*pad_labels(labels, MAX_GT))
+    n_batches = EVAL_IMAGES // EVAL_BATCH
+
+    # The oracle: an exact detector, decoded on the card.
+    nms_kernel.launches = 0
+    oracle_map = evaluate(Evaluator(StreamModel(y_true), 20, generator(), "training",
+                                    device=device), 300)
+    oracle_launches = nms_kernel.launches
+    log(f"evaluator, oracle (the encoder's targets), device decode: mAP {oracle_map!r} "
+        f"(gate >= {ORACLE_MAP_MIN}), NMS launches {oracle_launches} for {n_batches} batches")
+    if not oracle_map >= ORACLE_MAP_MIN or oracle_launches != n_batches:
+        raise AssertionError("the evaluator's oracle gate failed")
+
+    # The noisy oracle on the card, on the CPU and through the host decoder.
+    y_noisy = noisy_oracle(y_true.cpu().numpy(), SEED + 5)
+    y_noisy_card = torch.from_numpy(y_noisy).to(device)
+    maps = {}
+    for name, stream, on, device_decode in (
+            ("card", y_noisy_card, device, True), ("cpu", torch.from_numpy(y_noisy), "cpu", True),
+            ("host_decode", y_noisy_card, device, False)):
+        ev = Evaluator(StreamModel(stream), 20, generator(), "training", device=on)
+        maps[name] = evaluate(ev, 300, device_decode)
+    with sync_checked_outside_the_drain():
+        again = evaluate(Evaluator(StreamModel(y_noisy_card), 20, generator(), "training",
+                                   device=device), 300)
+    log(f"evaluator, noisy oracle: mAP card {maps['card']!r}, CPU {maps['cpu']!r} (limit "
+        f"{EVAL_CARD_CPU_TOL}), host decoder {maps['host_decode']!r} (limit "
+        f"{EVAL_HOST_DECODE_TOL}); again with sync debug 'error' outside the drain: {again!r}")
+    if not (0.0 < maps["card"] < 1.0 and abs(maps["card"] - maps["cpu"]) <= EVAL_CARD_CPU_TOL
+            and abs(maps["card"] - maps["host_decode"]) <= EVAL_HOST_DECODE_TOL
+            and again == maps["card"]):
+        raise AssertionError("the noisy-oracle evaluations disagree")
+
+    # Real models: SSD300 'training' + device decode, SSD512 'inference' with
+    # the resize 300 -> 512 on the host. Each: a gated run, a timed run and a
+    # profiled run.
+    models = {
+        "ssd300": (model_for(seeded_state(), "training", torch.bfloat16, device), "training",
+                   300),
+        "ssd512": (model_for(seeded_state("ssd512"), "inference", torch.bfloat16, device,
+                             "ssd512"), "inference", 512),
+    }
+    lines, launches = [], {}
+    for name, (model, mode, size) in models.items():
+        ev = Evaluator(model, 20, generator(), mode, device=device)
+        nms_kernel.launches = 0
+        m = ev(size, size, EVAL_BATCH, verbose=False)
+        launches[name] = nms_kernel.launches
+        log(f"evaluator, {name} '{mode}' bf16 (seeded weights): mAP {m!r}, NMS launches "
+            f"{launches[name]}")
+        if not (np.isfinite(m) and 0.0 <= m <= 1.0) or launches[name] != n_batches:
+            raise AssertionError(f"the evaluator on {name} gave mAP {m} with "
+                                 f"{launches[name]} NMS launches")
+        t0 = time.perf_counter()
+        ev(size, size, EVAL_BATCH, verbose=False)
+        wall = time.perf_counter() - t0
+        prof_wall, busy = busy_share(lambda: ev(size, size, EVAL_BATCH, verbose=False))
+        stages = {}
+        evaluate(ev, size, seconds=stages)
+        lines.append(dict(metric="evaluator_img_per_s", model=name, mode=mode, dtype="bf16",
+                          batch=EVAL_BATCH, images=EVAL_IMAGES, img_per_s=EVAL_IMAGES / wall,
+                          seconds=wall, timer="host clock, whole Evaluator.__call__",
+                          busy_share=busy, profiled_seconds=prof_wall,
+                          stage_seconds=stages, map=m, card=card))
+    lines.append(dict(metric="eval_map_gates", oracle=oracle_map, noisy_card=maps["card"],
+                      noisy_cpu=maps["cpu"], noisy_host_decode=maps["host_decode"],
+                      images=EVAL_IMAGES, card=card))
+    launches["evaluator_oracle"] = oracle_launches
+    return lines, launches
+
+
+def coco_part(device, card):
+    """Phase 9c: ``predict_all_to_json`` with SSD300 COCO-81 'inference',
+    then ``COCOEvalBBox`` against the same labels. Returns (line, launches)."""
+    cfg = SSDConfig.ssd300(n_classes=80, dataset="coco")
+    model = model_for(seeded_state("ssd300", cfg), "inference", torch.bfloat16, device,
+                      config=cfg)
+    images, labels = SynthVOC(COCO_IMAGES, image_size=300, split="val", seed=SEED).materialize()
+    gen = SynthVOC(COCO_IMAGES, image_size=300, split="val",
+                   seed=SEED).as_data_generator(images, labels)
+    classes_to_cats = {i: i for i in range(1, 81)}
+    gt = {"images": [{"id": i} for i in range(COCO_IMAGES)],
+          "categories": [{"id": c, "name": str(c)} for c in classes_to_cats.values()],
+          "annotations": [{"id": 1000 * i + k, "image_id": i, "category_id": int(c),
+                           "bbox": [float(x0), float(y0), float(x1 - x0), float(y1 - y0)]}
+                          for i, lab in enumerate(labels)
+                          for k, (c, x0, y0, x1, y1) in enumerate(lab)]}
+    nms_kernel.launches = 0
+    with tempfile.TemporaryDirectory() as tmp, nms_inputs_recorded(keep=False) as lanes:
+        results = predict_all_to_json(os.path.join(tmp, "results.json"), model, 300, 300,
+                                      classes_to_cats, gen, batch_size=EVAL_BATCH,
+                                      model_mode="inference", verbose=False, device=device)
+    launches = nms_kernel.launches
+    stats = COCOEvalBBox(gt, results).evaluate()
+    log(f"COCO: {len(results)} detections of {COCO_IMAGES} images, NMS launches {launches} on "
+        f"lanes {lanes}; COCOEvalBBox {json.dumps(stats)}")
+    if (launches != COCO_IMAGES // EVAL_BATCH or len(stats) != 12
+            or not all(np.isfinite(v) for v in stats.values())
+            or any(shape[0] != EVAL_BATCH * 80 for shape in lanes)):
+        raise AssertionError("the COCO tools' run failed its gate")
+    return dict(metric="coco_eval", model="ssd300 coco-81 inference bf16", images=COCO_IMAGES,
+                detections=len(results), lanes=[list(sh) for sh in lanes], stats=stats,
+                card=card), launches
+
+
+def interleaved_ms(variants):
+    """Milliseconds per call of each variant, rounds of 10 calls interleaved."""
+    runs = {name: [] for name in variants}
+    for _ in range(FOLD_ROUNDS):
+        for name, fn in variants.items():
+            runs[name] += time_cuda(fn, iters=10, repeats=1, warmup=1)
+    return {name: summary(r) for name, r in runs.items()}
+
+
+def folding_part(device, card):
+    """Phase 9d: BatchNorm folding (SSD7) and preprocessing folding
+    (SSD300) against the unfolded models on the card, f32; their times at
+    bf16 batch 8. Returns the timing line."""
+    cfg7 = SSDConfig.ssd7()
+    model7, _ = ssd_7(cfg7, generator=torch.Generator().manual_seed(SEED), device="cpu")
+    rng = np.random.RandomState(SEED + 6)
+    with torch.no_grad():
+        # Heads at 1/10, as seeded_state scales SSD300's: scores off 1.0 and
+        # boxes near their anchors (SSD7's variances are 1).
+        for i in range(4, 8):
+            getattr(model7, f"classes{i}").weight.mul_(0.1)
+            getattr(model7, f"boxes{i}").weight.mul_(0.1)
+        for i in range(1, 8):
+            bn = getattr(model7, f"bn{i}")
+            c = bn.running_mean.shape[0]
+            bn.running_mean.copy_(torch.from_numpy(rng.randn(c).astype(np.float32) * 0.5))
+            bn.running_var.copy_(torch.from_numpy(rng.rand(c).astype(np.float32) * 2 + 0.1))
+            bn.weight.copy_(torch.from_numpy(rng.rand(c).astype(np.float32) + 0.5))
+            bn.bias.copy_(torch.from_numpy(rng.randn(c).astype(np.float32) * 0.2))
+    state7 = model7.state_dict()
+    folded7 = fold_batchnorm(state7)
+
+    def ssd7_model(state, mode, dtype, fold_bn):
+        m, _ = ssd_7(cfg7, mode=mode, compute_dtype=dtype, fold_bn=fold_bn, device=device)
+        m.load_state_dict(state)
+        return m
+
+    x7 = torch.from_numpy(np.random.RandomState(SEED + 7).randint(
+        0, 256, (BATCH, cfg7.img_height, cfg7.img_width, 3)).astype(np.float32)).to(device)
+    y7 = ssd7_model(state7, "training", torch.float32, False)(x7)
+    y7_fold = ssd7_model(folded7, "training", torch.float32, True)(x7)
+    err7 = float((y7 - y7_fold).abs().max())
+    compare_detections("SSD7 inference f32, BN folded vs not",
+                       ssd7_model(folded7, "inference", torch.float32, True)(x7).cpu().numpy(),
+                       ssd7_model(state7, "inference", torch.float32, False)(x7).cpu().numpy(),
+                       FOLD_TOL, BOX_TOL)
+
+    state300 = seeded_state()
+    cfg300 = SSDConfig.ssd300()
+    state300_fold, cfg300_fold = fold_preprocessing(state300, cfg300)
+    x = torch.from_numpy(np.random.RandomState(SEED + 1).randint(
+        0, 256, (BATCH, 300, 300, 3)).astype(np.float32)).to(device)
+    y300 = model_for(state300, "training", torch.float32, device)(x)
+    y300_fold = model_for(state300_fold, "training", torch.float32, device,
+                          config=cfg300_fold)(x)
+    err300 = float((y300 - y300_fold).abs().max())
+    log(f"folding, f32 y_pred on the card: SSD7 BN folded vs not {err7:.3g}, SSD300 "
+        f"preprocessing folded vs not {err300:.3g} (limit {FOLD_TOL})")
+    if err7 > FOLD_TOL or err300 > FOLD_TOL:
+        raise AssertionError("a folded model differs from the unfolded one")
+
+    s7, f7 = (ssd7_model(state7, "inference", torch.bfloat16, False),
+              ssd7_model(folded7, "inference", torch.bfloat16, True))
+    s300 = model_for(state300, "inference", torch.bfloat16, device)
+    f300 = model_for(state300_fold, "inference", torch.bfloat16, device, config=cfg300_fold)
+    times = interleaved_ms({"ssd7": lambda: s7(x7), "ssd7_bn_folded": lambda: f7(x7),
+                            "ssd300": lambda: s300(x),
+                            "ssd300_preprocessing_folded": lambda: f300(x)})
+    log(f"folding, bf16 inference batch {BATCH}, median ms: "
+        + ", ".join(f"{k} {v['median']:.3f}" for k, v in times.items()))
+    return dict(metric="folding_ms", batch=BATCH, dtype="bf16", mode="inference",
+                rounds=FOLD_ROUNDS, ssd7_y_pred_err=err7, ssd300_y_pred_err=err300,
+                **{f"{k}_ms": v for k, v in times.items()}, card=card)
+
+
+def eval_phase(device, card):
+    """Phase 9. Returns (timing lines, NMS launches by path)."""
+    lines, ssd512_launches = ssd512_part(device, card)
+    eval_lines, eval_launches = evaluator_part(device, card)
+    lines += eval_lines
+    coco_line, coco_launches = coco_part(device, card)
+    lines += [coco_line, folding_part(device, card)]
+    for line in lines:
+        log(f"{line['metric']}: {json.dumps({k: v for k, v in line.items() if k != 'metric'})}")
+    return lines, dict(ssd512=ssd512_launches, evaluator=eval_launches["ssd300"],
+                       evaluator_ssd512=eval_launches["ssd512"],
+                       evaluator_oracle=eval_launches["evaluator_oracle"], coco=coco_launches)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; the port's main path runs on one")
@@ -1069,6 +1510,10 @@ def main():
         dp_lines, dp_launches = dp_phase(state, device, card, train_lines[0]["ms_per_step"])
     lines += dp_lines
 
+    # 9. Evaluation: SSD512, the evaluator, the COCO tools, folding.
+    eval_lines, eval_launches = eval_phase(device, card)
+    lines += eval_lines
+
     for line in lines:
         print(json.dumps(line), flush=True)
 
@@ -1080,7 +1525,7 @@ def main():
         bound_by=nms_main["bound_by"], library_ms=None, library_note=NMS_LIBRARY_NOTE,
         shape="main_path", passes=2,
         launches_by_path=dict(serving=main_launches, serving_requests=serve_launches,
-                              **dp_launches),
+                              **dp_launches, **eval_launches),
     )]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,3 +1,10 @@
+from ssd_keras_torch.data.datasets import DataGenerator, DatasetError, DegenerateBatchError
+from ssd_keras_torch.data.geometric import Resize
+from ssd_keras_torch.data.misc import apply_inverse_transforms
+from ssd_keras_torch.data.photometric import ConvertTo3Channels
 from ssd_keras_torch.data.synthvoc import SYNTHVOC_CLASS_NAMES, SynthVOC
 
-__all__ = ["SynthVOC", "SYNTHVOC_CLASS_NAMES"]
+__all__ = [
+    "SynthVOC", "SYNTHVOC_CLASS_NAMES", "DataGenerator", "DatasetError", "DegenerateBatchError",
+    "Resize", "ConvertTo3Channels", "apply_inverse_transforms",
+]

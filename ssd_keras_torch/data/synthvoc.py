@@ -1,8 +1,7 @@
 """SynthVOC: a deterministic synthetic 20-class detection benchmark.
 
 Vendored from ``ssd_keras_tpu/data/synthvoc.py`` (NumPy only) so that the
-PyTorch port imports without JAX; ``as_data_generator`` stays behind until
-the port has the data generator. Everything else is unchanged.
+PyTorch port imports without JAX; unchanged but for the import paths.
 
 The reference validates its whole training system by one number — SSD300
 mAP 0.77 on Pascal VOC07 (/root/reference/README.md:81-87) — but no real
@@ -354,3 +353,20 @@ class SynthVOC:
         with open(ann_path, "w") as f:
             json.dump(coco, f)
         return img_dir, ann_path
+
+    def as_data_generator(self, images: Optional[np.ndarray] = None,
+                          labels: Optional[list] = None):
+        """An in-memory :class:`DataGenerator` over this split (for the
+        Evaluator and the host augmentation pipeline)."""
+        from ssd_keras_torch.data.datasets import DataGenerator
+
+        if images is None or labels is None:
+            images, labels = self.materialize()
+        gen = DataGenerator(load_images_into_memory=False)
+        gen.images = [images[i] for i in range(len(images))]
+        gen.labels = [np.asarray(l) for l in labels]
+        gen.image_ids = list(range(len(images)))
+        gen.eval_neutral = None
+        gen.dataset_size = len(images)
+        gen.dataset_indices = np.arange(len(images), dtype=np.int32)
+        return gen

@@ -13,6 +13,12 @@ sort, which breaks ties lowest index first as ``lax.top_k`` does.
 Thresholds are rounded to f32 before comparing, as JAX compares f32 arrays
 with a Python float.
 
+The host decoders (:func:`decode_detections`, :func:`decode_detections_fast`,
+:func:`decode_detections_debug` and their helpers) are vendored from the JAX
+package's NumPy ones: ragged per-image lists, f64 rows, a NumPy
+:func:`decode_offsets_np`, and greedy NMS through the host C++ of
+``native/`` (``greedy_nms_numpy`` is the NumPy loop, the plain version).
+
 Under data parallelism each rank decodes its own rows of the global batch,
 so the NMS kernel runs on that rank's ``B_local * (C - 1)`` lanes: what the
 JAX package's ``custom_partitioning`` rule for its kernel
@@ -24,15 +30,29 @@ detections in rank order.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
 
+from ssd_keras_torch import native
 from ssd_keras_torch.kernels.nms import greedy_nms_mask_batched
+from ssd_keras_torch.ops import boxes as box_ops
 from ssd_keras_torch.ops.boxes import border_delta as _border_delta
 
-__all__ = ["decode_offsets", "decode_detections_fixed", "decode_detections_fast_fixed"]
+__all__ = [
+    "decode_offsets",
+    "decode_detections_fixed",
+    "decode_detections_fast_fixed",
+    "decode_offsets_np",
+    "decode_detections",
+    "decode_detections_fast",
+    "decode_detections_debug",
+    "get_num_boxes_per_pred_layer",
+    "get_pred_layers",
+    "greedy_nms",
+    "greedy_nms_numpy",
+]
 
 
 def _f32(x: float) -> float:
@@ -275,3 +295,270 @@ def decode_detections_fast_fixed(
         border_delta=_border_delta(border_pixels),
     )
 
+
+
+# --------------------------------------------------------------------------- #
+# Host-side ragged decoders (NumPy), vendored from ssd_keras_tpu/decoder.py
+# --------------------------------------------------------------------------- #
+
+
+def decode_offsets_np(
+    y_pred: np.ndarray,
+    input_coords: str = "centroids",
+    normalize_coords: bool = True,
+    img_height: Optional[int] = None,
+    img_width: Optional[int] = None,
+) -> np.ndarray:
+    """:func:`decode_offsets` in NumPy, in the dtype and op order of the JAX
+    package's ``decode_offsets(..., xp=np)`` (the host decoders' boxes)."""
+    anchors = y_pred[..., -8:-4]
+    variances = y_pred[..., -4:]
+    offsets = y_pred[..., -12:-8]
+
+    if input_coords == "centroids":
+        wh = np.exp(offsets[..., 2:4] * variances[..., 2:4]) * anchors[..., 2:4]
+        cxy = offsets[..., 0:2] * variances[..., 0:2] * anchors[..., 2:4] + anchors[..., 0:2]
+        cent = np.concatenate([cxy, wh], axis=-1)
+        corners = box_ops.convert_coordinates(cent, -4, "centroids2corners")
+    elif input_coords == "minmax":
+        w = (anchors[..., 1] - anchors[..., 0])[..., None]
+        h = (anchors[..., 3] - anchors[..., 2])[..., None]
+        size = np.concatenate([w, w, h, h], axis=-1)
+        mm = offsets * variances * size + anchors
+        corners = box_ops.convert_coordinates(mm, -4, "minmax2corners")
+    elif input_coords == "corners":
+        w = (anchors[..., 2] - anchors[..., 0])[..., None]
+        h = (anchors[..., 3] - anchors[..., 1])[..., None]
+        size = np.concatenate([w, h, w, h], axis=-1)
+        corners = offsets * variances * size + anchors
+    else:
+        raise ValueError(f"Unexpected input_coords {input_coords!r}.")
+
+    if normalize_coords:
+        if img_height is None or img_width is None:
+            raise ValueError(
+                "img_height and img_width are required when normalize_coords=True."
+            )
+        scale = np.asarray([img_width, img_height, img_width, img_height], dtype=corners.dtype)
+        corners = corners * scale
+    return corners
+
+
+def _nms_rows(rows: np.ndarray, score_col: int, iou_threshold: float, border_pixels: str):
+    """Greedy NMS (host C++) over rows ``[..., score, 4 corners]`` whose
+    score is column ``score_col``; the survivors in selection order."""
+    rows = np.asarray(rows)
+    keep = native.greedy_nms_indices(
+        rows[:, score_col], rows[:, score_col + 1:score_col + 5], iou_threshold,
+        _border_delta(border_pixels),
+    )
+    return rows[keep]
+
+
+def _nms_rows_numpy(rows: np.ndarray, score_col: int, iou_threshold: float,
+                    border_pixels: str):
+    """The plain version of :func:`_nms_rows`: the NumPy loop (f64 IoU)."""
+    boxes_left = np.copy(rows)
+    maxima = []
+    box_cols = slice(score_col + 1, score_col + 5)
+    while boxes_left.shape[0] > 0:
+        i = np.argmax(boxes_left[:, score_col])
+        maximum = np.copy(boxes_left[i])
+        maxima.append(maximum)
+        boxes_left = np.delete(boxes_left, i, axis=0)
+        if boxes_left.shape[0] == 0:
+            break
+        sims = box_ops.iou_np(
+            boxes_left[:, box_cols], maximum[box_cols], coords="corners",
+            mode="element-wise", border_pixels=border_pixels,
+        )
+        boxes_left = boxes_left[sims <= iou_threshold]
+    return np.array(maxima)
+
+
+def greedy_nms(boxes_scores: np.ndarray, iou_threshold: float = 0.45,
+               border_pixels: str = "half") -> np.ndarray:
+    """Greedy NMS over (k, 5+) rows ``[score, xmin, ymin, xmax, ymax, ...]``
+    through the host C++; the surviving rows in selection (score-descending)
+    order. Parity: ssd_output_decoder.py:77-92 (`_greedy_nms`)."""
+    return _nms_rows(boxes_scores, 0, iou_threshold, border_pixels)
+
+
+def greedy_nms_numpy(boxes_scores: np.ndarray, iou_threshold: float = 0.45,
+                     border_pixels: str = "half") -> np.ndarray:
+    """The plain version of :func:`greedy_nms`: the NumPy loop the JAX
+    package runs without its native library."""
+    return _nms_rows_numpy(boxes_scores, 0, iou_threshold, border_pixels)
+
+
+def _top_k_rows(pred: np.ndarray, top_k, score_col: int) -> np.ndarray:
+    if top_k != "all" and pred.shape[0] > top_k:
+        kth = pred.shape[0] - top_k
+        idx = np.argpartition(pred[:, score_col], kth=kth, axis=0)[kth:]
+        pred = pred[idx]
+    return pred
+
+
+def decode_detections(
+    y_pred: np.ndarray,
+    confidence_thresh: float = 0.01,
+    iou_threshold: float = 0.45,
+    top_k=200,
+    input_coords: str = "centroids",
+    normalize_coords: bool = True,
+    img_height: Optional[int] = None,
+    img_width: Optional[int] = None,
+    border_pixels: str = "half",
+) -> List[np.ndarray]:
+    """Host decode with per-class NMS; returns a ragged list of (k, 6) arrays.
+
+    Rows are ``[class_id, confidence, xmin, ymin, xmax, ymax]``.
+    Parity: ssd_output_decoder.py:111-226.
+    """
+    y_pred = np.asarray(y_pred)
+    corners = decode_offsets_np(y_pred, input_coords, normalize_coords, img_height, img_width)
+    n_classes = y_pred.shape[-1] - 12
+
+    results = []
+    for b in range(y_pred.shape[0]):
+        pred = []
+        for class_id in range(1, n_classes):
+            scores = y_pred[b, :, class_id]
+            mask = scores > confidence_thresh
+            if not np.any(mask):
+                continue
+            cand = np.concatenate([scores[mask][:, None], corners[b][mask]], axis=1)
+            maxima = greedy_nms(cand, iou_threshold, border_pixels)
+            out = np.zeros((maxima.shape[0], 6))
+            out[:, 0] = class_id
+            out[:, 1:] = maxima
+            pred.append(out)
+        if pred:
+            pred = _top_k_rows(np.concatenate(pred, axis=0), top_k, 1)
+        else:
+            pred = np.zeros((0, 6))
+        results.append(pred)
+    return results
+
+
+def decode_detections_fast(
+    y_pred: np.ndarray,
+    confidence_thresh: float = 0.5,
+    iou_threshold: Optional[float] = 0.45,
+    top_k="all",
+    input_coords: str = "centroids",
+    normalize_coords: bool = True,
+    img_height: Optional[int] = None,
+    img_width: Optional[int] = None,
+    border_pixels: str = "half",
+) -> List[np.ndarray]:
+    """Host decode with argmax class + global NMS; ragged list of (k, 6).
+
+    Parity: ssd_output_decoder.py:228-333.
+    """
+    y_pred = np.asarray(y_pred)
+    corners = decode_offsets_np(y_pred, input_coords, normalize_coords, img_height, img_width)
+    class_ids = np.argmax(y_pred[:, :, :-12], axis=-1)
+    confs = np.amax(y_pred[:, :, :-12], axis=-1)
+
+    results = []
+    for b in range(y_pred.shape[0]):
+        mask = class_ids[b] != 0
+        boxes = np.concatenate(
+            [
+                class_ids[b][mask][:, None].astype(np.float64),
+                confs[b][mask][:, None],
+                corners[b][mask],
+            ],
+            axis=1,
+        )
+        boxes = boxes[boxes[:, 1] >= confidence_thresh]
+        if iou_threshold and boxes.shape[0] > 0:
+            boxes = _nms_rows(boxes, 1, iou_threshold, border_pixels)
+        results.append(_top_k_rows(boxes, top_k, 1))
+    return results
+
+
+def decode_detections_debug(
+    y_pred: np.ndarray,
+    confidence_thresh: float = 0.01,
+    iou_threshold: float = 0.45,
+    top_k=200,
+    input_coords: str = "centroids",
+    normalize_coords: bool = True,
+    img_height: Optional[int] = None,
+    img_width: Optional[int] = None,
+    variance_encoded_in_target: bool = False,
+    border_pixels: str = "half",
+) -> List[np.ndarray]:
+    """Host decode that keeps each box's internal anchor index.
+
+    Output rows are ``[box_id, class_id, confidence, xmin, ymin, xmax, ymax]``
+    so every final detection can be attributed to the predictor layer that
+    produced it (with :func:`get_pred_layers`). Parity:
+    ssd_output_decoder.py:342-467.
+    """
+    y_pred = np.asarray(y_pred)
+    if variance_encoded_in_target:
+        # Offsets were encoded without the variance division.
+        y = np.array(y_pred)
+        y[..., -4:] = 1.0
+        corners = decode_offsets_np(y, input_coords, normalize_coords, img_height, img_width)
+    else:
+        corners = decode_offsets_np(y_pred, input_coords, normalize_coords, img_height,
+                                    img_width)
+    n_classes = y_pred.shape[-1] - 12
+    box_ids = np.arange(y_pred.shape[1], dtype=np.float64)
+
+    results = []
+    for b in range(y_pred.shape[0]):
+        pred = []
+        for class_id in range(1, n_classes):
+            scores = y_pred[b, :, class_id]
+            mask = scores > confidence_thresh
+            if not np.any(mask):
+                continue
+            cand = np.concatenate(
+                [box_ids[mask][:, None], scores[mask][:, None], corners[b][mask]], axis=1,
+            )
+            maxima = _nms_rows(cand, 1, iou_threshold, border_pixels)
+            out = np.zeros((maxima.shape[0], 7))
+            out[:, 0] = maxima[:, 0]  # box id
+            out[:, 1] = class_id
+            out[:, 2:] = maxima[:, 1:]
+            pred.append(out)
+        if pred:
+            pred = _top_k_rows(np.concatenate(pred, axis=0), top_k, 2)
+        else:
+            pred = np.zeros((0, 7))
+        results.append(pred)
+    return results
+
+
+def get_num_boxes_per_pred_layer(predictor_sizes, aspect_ratios, two_boxes_for_ar1):
+    """Boxes contributed by each predictor layer (ssd_output_decoder.py:488)."""
+    counts = []
+    for (h, w), ars in zip(predictor_sizes, aspect_ratios):
+        n = len(ars) + (1 if (1 in ars and two_boxes_for_ar1) else 0)
+        counts.append(int(h) * int(w) * n)
+    return counts
+
+
+def get_pred_layers(y_pred_decoded, num_boxes_per_pred_layer):
+    """Attribute debug-decoded boxes to predictor layers by anchor index.
+
+    Parity: ssd_output_decoder.py:503-530.
+    """
+    cumulative = np.cumsum(num_boxes_per_pred_layer)
+    all_layers = []
+    for batch_item in y_pred_decoded:
+        layers = []
+        for prediction in batch_item:
+            box_id = prediction[0]
+            if box_id < 0 or box_id >= cumulative[-1]:
+                raise ValueError(
+                    f"Box index {box_id} out of bounds for {cumulative[-1]} total boxes."
+                )
+            layers.append(int(np.searchsorted(cumulative, box_id, side="right")))
+        all_layers.append(layers)
+    return all_layers

@@ -2,9 +2,11 @@ from ssd_keras_torch.models.common import init_weights
 from ssd_keras_torch.models.layers import BatchNorm, L2Normalization
 from ssd_keras_torch.models.ssd7 import SSD7, build_model, ssd7_predictor_sizes, ssd_7
 from ssd_keras_torch.models.ssd300 import SSD300, ssd300_predictor_sizes, ssd_300
+from ssd_keras_torch.models.ssd512 import SSD512, ssd512_predictor_sizes, ssd_512
 
 __all__ = [
     "SSD300", "ssd_300", "ssd300_predictor_sizes",
+    "SSD512", "ssd_512", "ssd512_predictor_sizes",
     "SSD7", "ssd_7", "build_model", "ssd7_predictor_sizes",
     "init_weights", "BatchNorm", "L2Normalization",
 ]

@@ -7,6 +7,11 @@ conv4..conv7, and the reference's layer names (``conv{i}``, ``bn{i}``,
 ``classes{i}``, ``boxes{i}``). BatchNorm follows flax
 (``models/layers.py:BatchNorm``). conv1 runs as a plain convolution: the JAX
 package's space-to-depth form of it is a TPU rewrite with the same output.
+
+With ``fold_bn=True`` the module has no BatchNorm layers and serves the
+parameters of ``optimize.fold_batchnorm`` (each BN folded into its conv); it
+is an inference-only graph and refuses ``train()`` mode, as the JAX
+package's ``SSD7(fold_bn=True)`` refuses ``train=True``.
 """
 
 from __future__ import annotations
@@ -55,23 +60,35 @@ class SSD7(SSDModule):
     """The SSD7 network; ``forward`` takes (B, H, W, 3) images. BatchNorm
     uses batch statistics in ``train()`` mode and the running ones in
     ``eval()`` mode. Parameters and BN statistics are f32; the convolutions
-    run in ``compute_dtype``."""
+    run in ``compute_dtype``. ``fold_bn``: no BatchNorm layers (their
+    affine maps folded into the convs by ``optimize.fold_batchnorm``),
+    inference only."""
 
     def __init__(self, config: SSDConfig, mode: str = "training",
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, fold_bn: bool = False):
         super().__init__(config, mode, compute_dtype,
                          ssd7_predictor_sizes(config.img_height, config.img_width))
         cin = config.img_channels
         for i, ch in enumerate(_CHANNELS, start=1):
             k = 5 if i == 1 else 3
             self.add_module(f"conv{i}", nn.Conv2d(cin, ch, k, padding=k // 2))
-            self.add_module(f"bn{i}", BatchNorm(ch))
+            if not fold_bn:
+                self.add_module(f"bn{i}", BatchNorm(ch))
             cin = ch
         n_classes = config.n_classes_with_background
         for layer, n_boxes in zip(_HEAD_LAYERS, config.n_boxes_per_cell):
             ch = _CHANNELS[layer - 1]
             self.add_module(f"classes{layer}", nn.Conv2d(ch, n_boxes * n_classes, 3, padding=1))
             self.add_module(f"boxes{layer}", nn.Conv2d(ch, n_boxes * 4, 3, padding=1))
+        self.fold_bn = fold_bn
+        if fold_bn:
+            self.training = False
+
+    def train(self, mode: bool = True):
+        if mode and self.fold_bn:
+            raise ValueError("fold_bn=True is an inference-only graph; "
+                             "train with fold_bn=False.")
+        return super().train(mode)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.config
@@ -82,7 +99,10 @@ class SSD7(SSDModule):
         ).permute(0, 3, 1, 2)
         conf_maps, loc_maps = [], []
         for i in range(1, len(_CHANNELS) + 1):
-            x = F.elu(getattr(self, f"bn{i}")(self.conv(x, f"conv{i}")))
+            x = self.conv(x, f"conv{i}")
+            if not self.fold_bn:
+                x = getattr(self, f"bn{i}")(x)
+            x = F.elu(x)
             if i in _HEAD_LAYERS:
                 conf_map, loc_map = self.heads(x, f"classes{i}", f"boxes{i}")
                 conf_maps.append(conf_map)
@@ -101,6 +121,7 @@ def build_model(
     compute_dtype: torch.dtype = torch.float32,
     device="cuda",
     generator: Optional[torch.Generator] = None,
+    fold_bn: bool = False,
     **config_overrides,
 ):
     """Build an SSD7 model on ``device`` (the card unless the caller asks for
@@ -108,14 +129,16 @@ def build_model(
 
     Weights are drawn on the CPU from ``generator`` as in ``ssd_300`` and
     stay f32. With no ``config`` the canonical SSD7 configuration is used;
-    ``config_overrides`` go to :meth:`SSDConfig.ssd7`.
+    ``config_overrides`` go to :meth:`SSDConfig.ssd7`. ``fold_bn=True``
+    builds the BatchNorm-free serving graph for ``optimize.fold_batchnorm``'s
+    parameters.
     """
     device = target_device(device)
     if config is None:
         config = SSDConfig.ssd7(**config_overrides)
     elif config_overrides:
         raise ValueError("Pass either a config or overrides, not both.")
-    module = SSD7(config, mode=mode, compute_dtype=compute_dtype)
+    module = SSD7(config, mode=mode, compute_dtype=compute_dtype, fold_bn=fold_bn)
     init_weights(module, generator)
     module.to(device=device).eval()
     sizes = ssd7_predictor_sizes(config.img_height, config.img_width)

@@ -6,6 +6,8 @@
 of formulas for both. ``intersection_area`` and ``iou`` are the torch
 counterparts of the JAX functions of the same names, which the encoder runs
 on the device. Every step is one elementwise op, as in NumPy.
+``intersection_area_np`` and ``iou_np`` are the JAX functions with
+``xp=np`` (the host decoders', box filters' and evaluator's IoU).
 
 Coordinate formats
 ------------------
@@ -22,7 +24,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["border_delta", "convert_coordinates", "corner_indices", "intersection_area", "iou"]
+__all__ = [
+    "border_delta", "convert_coordinates", "corner_indices", "intersection_area", "iou",
+    "intersection_area_np", "iou_np",
+]
 
 _CONVERSIONS = {
     "minmax2centroids",
@@ -168,6 +173,60 @@ def iou(boxes1, boxes2, coords="centroids", mode="outer_product", border_pixels=
     # As in the JAX package (and its reference): the intersection always uses
     # the 'half' convention, the union areas use ``border_pixels``.
     inter = intersection_area(boxes1, boxes2, coords=coords, mode=mode, border_pixels="half")
+    d = border_delta(border_pixels)
+    x1a, y1a, x2a, y2a = _split_corners(boxes1, coords)
+    x1b, y1b, x2b, y2b = _split_corners(boxes2, coords)
+    (area1,), (area2,) = _outer(
+        mode, ((x2a - x1a + d) * (y2a - y1a + d),), ((x2b - x1b + d) * (y2b - y1b + d),)
+    )
+    return inter / (area1 + area2 - inter)
+
+
+# --------------------------------------------------------------------------- #
+# NumPy (host) IoU, vendored from ``ssd_keras_tpu/ops/boxes.py`` with
+# ``xp=np``: the host decoders, the data pipeline's box filter and the
+# evaluator's matching use these, in NumPy's own dtypes and op order, so that
+# a decision at an IoU threshold falls as it does in the JAX package.
+# --------------------------------------------------------------------------- #
+
+
+def _as_boxes_np(boxes1, boxes2, coords):
+    """``_as_boxes`` for NumPy arrays."""
+    boxes1, boxes2 = np.asarray(boxes1), np.asarray(boxes2)
+    if boxes1.ndim == 1:
+        boxes1 = boxes1[None, :]
+    if boxes2.ndim == 1:
+        boxes2 = boxes2[None, :]
+    if coords == "centroids":
+        boxes1 = convert_coordinates(boxes1, 0, "centroids2corners")
+        boxes2 = convert_coordinates(boxes2, 0, "centroids2corners")
+        coords = "corners"
+    elif coords not in ("minmax", "corners"):
+        raise ValueError(
+            f"Unexpected value for `coords`: {coords!r}. "
+            "Supported: 'minmax', 'corners', 'centroids'."
+        )
+    return boxes1, boxes2, coords
+
+
+def intersection_area_np(
+    boxes1, boxes2, coords="corners", mode="outer_product", border_pixels="half"
+):
+    """NumPy intersection areas between two box sets; see ``intersection_area``."""
+    boxes1, boxes2, coords = _as_boxes_np(boxes1, boxes2, coords)
+    d = border_delta(border_pixels)
+    (x1a, y1a, x2a, y2a), (x1b, y1b, x2b, y2b) = _outer(
+        mode, _split_corners(boxes1, coords), _split_corners(boxes2, coords)
+    )
+    iw = np.maximum(0.0, np.minimum(x2a, x2b) - np.maximum(x1a, x1b) + d)
+    ih = np.maximum(0.0, np.minimum(y2a, y2b) - np.maximum(y1a, y1b) + d)
+    return iw * ih
+
+
+def iou_np(boxes1, boxes2, coords="centroids", mode="outer_product", border_pixels="half"):
+    """NumPy Jaccard (IoU) similarity between two box sets; see ``iou``."""
+    boxes1, boxes2, coords = _as_boxes_np(boxes1, boxes2, coords)
+    inter = intersection_area_np(boxes1, boxes2, coords=coords, mode=mode, border_pixels="half")
     d = border_delta(border_pixels)
     x1a, y1a, x2a, y2a = _split_corners(boxes1, coords)
     x1b, y1b, x2b, y2b = _split_corners(boxes2, coords)

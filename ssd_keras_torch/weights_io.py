@@ -14,17 +14,31 @@
   ``ssd_keras_tpu/weights_io.py`` (BatchNorm's ``gamma``, ``beta``,
   ``moving_mean`` and ``moving_variance`` included). ``h5py`` is imported
   only there.
+* :func:`save_keras_h5_weights` writes a module's weights as a Keras-format
+  ``.h5`` file by the same layer names (OIHW back to HWIO), as the JAX
+  package's writer does; :func:`load_keras_h5_weights` here or there reads
+  it back.
+* :func:`sample_tensors` and :func:`sample_classifier_weights` (vendored
+  NumPy) sub- or up-sample predictor-head weights across class counts, on
+  arrays in the Keras/flax HWIO layout.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["from_flax_params", "to_flax_params", "load_keras_h5_weights"]
+__all__ = [
+    "from_flax_params",
+    "to_flax_params",
+    "load_keras_h5_weights",
+    "save_keras_h5_weights",
+    "sample_tensors",
+    "sample_classifier_weights",
+]
 
 Tree = Dict[str, Dict[str, np.ndarray]]
 
@@ -40,6 +54,7 @@ _KERAS_TO_FLAX = {"kernel": "kernel", "bias": "bias", "gamma": "gamma",
 _BN_STATS = {"moving_mean", "moving_variance"}
 # Keras BatchNormalization's affine names vs flax.linen.BatchNorm's.
 _KERAS_BN_TO_FLAX = {"gamma": "scale", "beta": "bias"}
+_FLAX_BN_TO_KERAS = {v: k for k, v in _KERAS_BN_TO_FLAX.items()}
 
 
 def from_flax_params(params: Tree, batch_stats: Optional[Tree] = None) -> Dict[str, torch.Tensor]:
@@ -179,3 +194,162 @@ def load_keras_h5_weights(
         warnings.warn(msg, stacklevel=2)
     model.load_state_dict(from_flax_params(params, stats))
     return loaded
+
+
+def save_keras_h5_weights(h5_path: str, model: nn.Module) -> None:
+    """Write ``model``'s weights as a genuine Keras-format ``.h5`` weight file.
+
+    The layout of Keras 2.x ``save_weights`` for the reference models, as
+    ``ssd_keras_tpu/weights_io.py:save_keras_h5_weights`` writes it from a
+    flax tree:
+
+    * root attrs ``layer_names`` / ``backend`` / ``keras_version``,
+    * per-layer-group ``weight_names`` attr listing the variable names,
+    * Conv/BN variables under a nested ``{layer}/{weight}:0`` path (kernels
+      HWIO; a BatchNorm's ``gamma``, ``beta``, ``moving_mean`` and
+      ``moving_variance``),
+    * L2Normalization's gamma as a flat ``{layer}_gamma:0`` dataset.
+    """
+    import h5py
+
+    params, batch_stats = to_flax_params(model.state_dict())
+    inv = {v: k for k, v in _KERAS_TO_FLAX.items()}
+
+    def _bytes_attr(names):
+        # NumPy sizes the fixed-width bytes dtype to the longest name.
+        return np.array([n.encode("utf8") for n in names])
+
+    with h5py.File(h5_path, "w") as f:
+        f.attrs["backend"] = np.asarray(b"tensorflow")
+        f.attrs["keras_version"] = np.asarray(b"2.2.4")
+        layer_names = list(params)
+        f.attrs["layer_names"] = _bytes_attr(layer_names)
+        for name in layer_names:
+            tensors = dict(params[name])
+            stats = dict(batch_stats.get(name, {}))
+            g = f.create_group(name)
+            weight_names = []
+            if set(tensors) == {"gamma"} and not stats:
+                # L2Normalization-style layer: flat '{layer}_gamma:0' dataset.
+                wname = f"{name}_gamma:0"
+                g.create_dataset(wname, data=tensors["gamma"])
+                weight_names.append(wname)
+            else:
+                inner = g.create_group(name)
+                is_batchnorm = "scale" in tensors
+                for key in list(tensors) + list(stats):
+                    value = tensors[key] if key in tensors else stats[key]
+                    if is_batchnorm and key in _FLAX_BN_TO_KERAS:
+                        keras_key = _FLAX_BN_TO_KERAS[key]
+                    else:
+                        keras_key = inv.get(key, key)
+                    inner.create_dataset(f"{keras_key}:0", data=value)
+                    weight_names.append(f"{name}/{keras_key}:0")
+            g.attrs["weight_names"] = _bytes_attr(weight_names)
+
+
+# --------------------------------------------------------------------------- #
+# Weight sub-/up-sampling (transfer a head across class counts), vendored from
+# ssd_keras_tpu/weights_io.py (NumPy; draws from the global np.random state)
+# --------------------------------------------------------------------------- #
+
+
+def sample_tensors(
+    weights_list: List[np.ndarray],
+    sampling_instructions: Sequence,
+    axes: Optional[List] = None,
+    init=None,
+    mean: float = 0.0,
+    stddev: float = 0.005,
+):
+    """Sub-sample or up-sample weight tensors consistently along given axes.
+
+    ``sampling_instructions``: per axis of the first tensor, either an int
+    (target size: random sub-sample keeping index order, or gaussian/zeros
+    up-fill) or a list of explicit indices to keep. Trailing tensors (e.g.
+    biases) are sampled along their matching last axes via ``axes``.
+    Capability parity with tensor_sampling_utils.py:21-177.
+    """
+    first = weights_list[0]
+    if len(sampling_instructions) != first.ndim:
+        raise ValueError(
+            "One sampling instruction per axis of the first tensor is required."
+        )
+    init = init or ["gaussian"] * len(sampling_instructions)
+
+    # Resolve each axis' kept-index list (sub-sampling) or target size (up).
+    out_indices: List[Optional[np.ndarray]] = []
+    out_sizes: List[int] = []
+    for ax, instr in enumerate(sampling_instructions):
+        size = first.shape[ax]
+        if isinstance(instr, (list, tuple, np.ndarray)):
+            idx = np.asarray(instr, dtype=np.int64)
+            if idx.max() >= size:
+                raise ValueError(
+                    f"Axis {ax}: explicit indices exceed source size {size}."
+                )
+            out_indices.append(np.sort(idx))
+            out_sizes.append(len(idx))
+        elif int(instr) <= size:
+            idx = np.sort(np.random.choice(size, int(instr), replace=False))
+            out_indices.append(idx)
+            out_sizes.append(int(instr))
+        else:
+            out_indices.append(None)  # up-sample
+            out_sizes.append(int(instr))
+
+    def sample_one(tensor: np.ndarray, tensor_axes: Sequence[int]):
+        # `tensor_axes` maps this tensor's axes onto the instruction axes.
+        out = tensor
+        for t_ax, i_ax in enumerate(tensor_axes):
+            idx = out_indices[i_ax]
+            target = out_sizes[i_ax]
+            if idx is not None:
+                out = np.take(out, idx, axis=t_ax)
+            elif target > out.shape[t_ax]:
+                shape = list(out.shape)
+                shape[t_ax] = target
+                if init[i_ax] == "zeros":
+                    filled = np.zeros(shape, dtype=out.dtype)
+                else:
+                    filled = np.random.normal(mean, stddev, shape).astype(out.dtype)
+                sl = [slice(None)] * out.ndim
+                sl[t_ax] = slice(0, out.shape[t_ax])
+                filled[tuple(sl)] = out
+                out = filled
+        return out
+
+    results = [sample_one(first, list(range(first.ndim)))]
+    for i, tensor in enumerate(weights_list[1:]):
+        if axes is None or i >= len(axes):
+            # Default: sample trailing tensors along the *last* instruction
+            # axis (the classifier-output axis), as for kernel+bias pairs.
+            tensor_axes = [first.ndim - 1] * tensor.ndim
+        else:
+            tensor_axes = list(axes[i])
+        results.append(sample_one(tensor, tensor_axes))
+    return results
+
+
+def sample_classifier_weights(
+    kernel: np.ndarray,
+    bias: np.ndarray,
+    n_classes_source: int,
+    classes_of_interest: Sequence[int],
+    n_boxes: int,
+):
+    """Port a conf head (HWIO ``kernel``) from ``n_classes_source`` to
+    ``len(classes_of_interest)`` classes.
+
+    Expands the per-box class indices (class 0 / background always kept first
+    if included in ``classes_of_interest``) exactly like the weight-sampling
+    tutorial's index arithmetic (weight_sampling_tutorial.ipynb cell 14).
+    """
+    idx = []
+    for b in range(n_boxes):
+        idx.extend(int(c) + b * n_classes_source for c in classes_of_interest)
+    return sample_tensors(
+        [kernel, bias],
+        sampling_instructions=list(kernel.shape[:-1]) + [idx],
+        axes=[[kernel.ndim - 1]],
+    )

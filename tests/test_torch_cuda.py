@@ -4,7 +4,9 @@ scratch kept per stream), the training slice
 (encode, train step, BatchNorm) against the CPU, and the data-parallel path
 (augmentation against the CPU, the streamed upload against the direct path,
 a one-rank NCCL step against the plain step, the dry run on two gloo ranks
-sharing the card).
+sharing the card), and the evaluation path (SSD512 against the CPU, the
+evaluator on the card against the CPU, the COCO tools' lanes, the host C++
+built with g++).
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither JAX nor the JAX package, so it also runs on a machine with
@@ -20,7 +22,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from chip_smoke import random_lanes
+from chip_smoke import StreamModel, noisy_oracle, random_lanes, seeded_state
 from ssd_keras_torch import SSDConfig, SSDInputEncoder, SSDLoss, SSDPredictor, ssd_7, ssd_300
 from ssd_keras_torch import train as T
 from ssd_keras_torch.data import SynthVOC
@@ -394,3 +396,88 @@ def test_dryrun_on_two_gloo_ranks_sharing_the_card(cuda):
     reports = dryrun_multichip(2, device_type="cuda", timeout=300)
     assert [r["rank"] for r in reports] == [0, 1]
     assert all(r["nms_launches"] >= 1 and r["n_streamed"] == 3 for r in reports)
+
+
+def test_ssd512_on_card_equals_cpu(cuda, no_tf32):
+    """f32 y_pred at batch 1 within chip_smoke's Y_PRED_TOL (1e-3); the
+    'inference' mode on the card launches the NMS kernel once per call."""
+    from ssd_keras_torch.models import ssd_512
+
+    state = seeded_state("ssd512")
+    x = torch.from_numpy(np.random.RandomState(4).randint(0, 256, (2, 512, 512, 3)).astype(
+        np.float32))
+
+    def build(mode, device):
+        model, _ = ssd_512(SSDConfig.ssd512(), mode=mode, device=device)
+        model.load_state_dict(state)
+        return model
+
+    with torch.no_grad():
+        y_card = build("training", cuda)(x[:1].to(cuda)).cpu()
+        y_cpu = build("training", "cpu")(x[:1])
+        before = nms_kernel.launches
+        det = build("inference", cuda)(x.to(cuda))
+        torch.cuda.synchronize()
+    assert y_cpu.shape == (1, 24564, 33)
+    assert float((y_card - y_cpu).abs().max()) <= 1e-3
+    assert nms_kernel.launches == before + 1 and det.shape == (2, 200, 6)
+
+
+def _eval_generator(images, labels):
+    return SynthVOC(len(images), image_size=300).as_data_generator(images, labels)
+
+
+def test_evaluator_on_card_equals_cpu_on_the_noisy_oracle(cuda):
+    """The same prediction results and mAP; one NMS launch per batch."""
+    from ssd_keras_torch.eval import Evaluator
+
+    images, labels = SynthVOC(16, image_size=300, split="val", seed=1).materialize()
+    enc = SSDInputEncoder(SSDConfig.ssd300(), ssd300_predictor_sizes(300, 300), max_gt_boxes=8,
+                          device="cpu")
+    y = noisy_oracle(enc.encode_padded(*pad_labels(labels, 8)).numpy(), seed=2)
+    runs = {}
+    for name, device in (("card", cuda), ("cpu", torch.device("cpu"))):
+        ev = Evaluator(StreamModel(torch.from_numpy(y).to(device)), 20,
+                       _eval_generator(images, labels), "training", device=device)
+        before = nms_kernel.launches
+        runs[name] = (ev(300, 300, 4, verbose=False), ev.prediction_results,
+                      nms_kernel.launches - before)
+    assert runs["card"][2] == 4 and runs["cpu"][2] == 0
+    assert 0 < runs["card"][0] < 1 and abs(runs["card"][0] - runs["cpu"][0]) <= 1e-6
+    for got, expected in zip(runs["card"][1], runs["cpu"][1]):
+        assert len(got) == len(expected)
+        for g, e in zip(got, expected):
+            assert g[0] == e[0] and abs(g[1] - e[1]) <= 1e-6
+            np.testing.assert_allclose(g[2:], e[2:], rtol=0, atol=0.1)
+
+
+def test_coco_json_on_card_runs_the_kernel_on_80_lanes_an_image(cuda):
+    from chip_smoke import nms_inputs_recorded
+    from ssd_keras_torch.eval import predict_all_to_json
+
+    cfg = SSDConfig.ssd300(n_classes=80, dataset="coco")
+    model, _ = ssd_300(cfg, mode="inference", compute_dtype=torch.bfloat16, device=cuda)
+    model.load_state_dict(seeded_state("ssd300", cfg))
+    images, labels = SynthVOC(6, image_size=300, split="val", seed=1).materialize()
+    with nms_inputs_recorded(keep=False) as lanes:
+        results = predict_all_to_json(os.devnull, model, 300, 300, {i: i for i in range(1, 81)},
+                                      _eval_generator(images, labels), batch_size=4,
+                                      model_mode="inference", verbose=False, device=cuda)
+    assert lanes == [(320, 400), (160, 400)]
+    assert results and all(1 <= r["category_id"] <= 80 for r in results)
+
+
+def test_host_ops_build_with_gxx_and_equal_the_numpy_loops():
+    """The card's machine builds the host C++ at first use; it equals the
+    NumPy loops (no card needed, but run with the card's tests)."""
+    from ssd_keras_torch import decoder, native
+
+    rng = np.random.RandomState(3)
+    xy = rng.rand(300, 2) * 60
+    rows = np.concatenate([rng.rand(300, 1), xy, xy + 1 + rng.rand(300, 2) * 20], axis=1)
+    rows = rows.astype(np.float32).astype(np.float64)
+    native.load_library()
+    assert native._library_path().is_file()
+    for border in ("half", "include", "exclude"):
+        np.testing.assert_array_equal(decoder.greedy_nms(rows, 0.45, border),
+                                      decoder.greedy_nms_numpy(rows, 0.45, border))

@@ -1,6 +1,6 @@
 """Guards of the PyTorch port: a clean import, the kernel build's flags, no
-silent fallback when the kernel cannot be built or launched, and builders
-that default to the card and raise without one."""
+silent fallback when the kernel or the host C++ cannot be built or
+launched, and builders that default to the card and raise without one."""
 
 import inspect
 import os
@@ -11,11 +11,14 @@ from pathlib import Path
 import pytest
 import torch
 
-from ssd_keras_torch import SSDConfig, SSDInputEncoder, ssd_7, ssd_300
+from ssd_keras_torch import SSDConfig, SSDInputEncoder, native, ssd_7, ssd_300, ssd_512
+from ssd_keras_torch.eval import Evaluator, predict_all_to_json
+from ssd_keras_torch.eval import evaluator as evaluator_module
 from ssd_keras_torch.kernels import build
 from ssd_keras_torch.kernels import nms as nms_kernel
 from ssd_keras_torch.models import ssd7 as ssd7_module
 from ssd_keras_torch.models import ssd300 as ssd300_module
+from ssd_keras_torch.models import ssd512 as ssd512_module
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -28,8 +31,17 @@ def test_import_needs_neither_jax_nor_the_jax_package():
         "assert {'ssd_keras_torch.train', 'ssd_keras_torch.data.device_aug',\n"
         "        'ssd_keras_torch.data.streaming', 'ssd_keras_torch.data.prefetch',\n"
         "        'ssd_keras_torch.parallel.sharding', 'ssd_keras_torch.parallel.launch',\n"
-        "        'ssd_keras_torch.parallel.dryrun'} <= set(sys.modules)\n"
-        "bad = {'jax', 'flax', 'ssd_keras_tpu', 'h5py', 'PIL', 'triton'} & set(sys.modules)\n"
+        "        'ssd_keras_torch.parallel.dryrun', 'ssd_keras_torch.models.ssd512',\n"
+        "        'ssd_keras_torch.optimize', 'ssd_keras_torch.native',\n"
+        "        'ssd_keras_torch.eval.evaluator', 'ssd_keras_torch.eval.coco',\n"
+        "        'ssd_keras_torch.eval.cocoeval', 'ssd_keras_torch.data.datasets',\n"
+        "        'ssd_keras_torch.data.geometric', 'ssd_keras_torch.data.patch_sampling',\n"
+        "        'ssd_keras_torch.data.validation', 'ssd_keras_torch.data.misc',\n"
+        "        'ssd_keras_torch.data.photometric'} <= set(sys.modules)\n"
+        "bad = {'jax', 'flax', 'ssd_keras_tpu', 'h5py', 'PIL', 'triton', 'cv2', 'bs4'}\n"
+        "bad &= set(sys.modules)\n"
+        "from ssd_keras_torch import native\n"
+        "assert native.load_library.cache_info().currsize == 0  # nothing built at import\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
@@ -131,3 +143,67 @@ def test_builder_without_a_card_raises_and_builds_nothing(name, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _BUILDERS[name]()
     assert built == []
+
+
+def test_gxx_command_builds_a_shared_library(tmp_path):
+    cmd = native.gxx_command("g++", tmp_path / "a.cpp", tmp_path / "lib.so")
+    assert cmd[:4] == ["g++", "-O3", "-shared", "-fPIC"]
+    assert cmd[cmd.index("-o") + 1] == str(tmp_path / "lib.so")
+    assert cmd[-1] == str(tmp_path / "a.cpp")
+    assert native.SOURCE.is_file() and native.BUILD_DIR == build.BUILD_DIR
+    assert native._library_path().parent == native.BUILD_DIR
+
+
+@pytest.fixture()
+def empty_native_build(tmp_path, monkeypatch):
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "_build")
+    return tmp_path / "_build"
+
+
+def test_missing_gxx_raises(empty_native_build, tmp_path, monkeypatch):
+    monkeypatch.setenv("PATH", str(tmp_path / "empty"))
+    with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+        native.load_library.__wrapped__()
+    assert not empty_native_build.exists() or not list(empty_native_build.iterdir())
+
+
+def test_failed_native_build_raises_with_the_compilers_message(empty_native_build, tmp_path,
+                                                               monkeypatch):
+    bindir = tmp_path / "bin"
+    bindir.mkdir()
+    gxx = bindir / "g++"
+    gxx.write_text("#!/bin/sh\necho 'error: bad host op' >&2\nexit 1\n")
+    gxx.chmod(0o755)
+    monkeypatch.setenv("PATH", str(bindir))
+    with pytest.raises(RuntimeError, match="(?s)g\\+\\+ failed.*bad host op"):
+        native.load_library.__wrapped__()
+    assert not list(empty_native_build.iterdir())  # the half-built file is removed
+
+
+_EVAL_BUILDERS = {
+    "ssd_512": lambda: ssd_512(SSDConfig.ssd512()),
+    "Evaluator": lambda: Evaluator(model=lambda x: x, n_classes=20, data_generator=None),
+    "predict_all_to_json": lambda: predict_all_to_json(
+        "unused.json", lambda x: x, 300, 300, {}, None, batch_size=8),
+}
+
+
+@pytest.mark.parametrize("builder", [ssd_512, Evaluator.__init__, predict_all_to_json],
+                         ids=["ssd_512", "Evaluator", "predict_all_to_json"])
+def test_evaluation_entry_points_default_to_the_card(builder):
+    assert inspect.signature(builder).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("name", sorted(_EVAL_BUILDERS))
+def test_evaluation_entry_point_without_a_card_raises_and_builds_nothing(name, monkeypatch,
+                                                                         tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default builds there")
+    monkeypatch.chdir(tmp_path)
+    built = []
+    monkeypatch.setattr(ssd512_module, "SSD512", lambda *a, **k: built.append("SSD512"))
+    monkeypatch.setattr(SSDConfig, "anchor_tensor", lambda *a, **k: built.append("anchors"))
+    monkeypatch.setattr(evaluator_module, "upload_batch", lambda *a: built.append("upload"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _EVAL_BUILDERS[name]()
+    assert built == [] and not list(tmp_path.iterdir())
