@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and evaluation paths on one CUDA card.
+"""Drive the PyTorch port's serving, training, evaluation and host-chain
+training paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -83,6 +84,24 @@ Phases, in order; the first failure raises and the script exits non-zero:
    the unfolded models (f32 y_pred within FOLD_TOL, SSD7's detections
    matched), and their bf16 batch-8 times beside the unfolded ones.
 
+10. Host-chain training, the reference's own way of training, NumPy on the
+   host (no OpenCV): (a) SSD300 VOC at full width from a SynthVOC
+   ``DataGenerator`` of 256 images at 300x300 through ``generate(batch_size=
+   32, shuffle=True, transformations=[SSDDataAugmentation(300, 300)],
+   label_encoder=SSDInputEncoder(..., device="cuda"))`` into
+   ``Trainer.fit_generator`` (bf16 over f32 weights), 2 epochs of 4 steps:
+   every batch uint8 (32, 300, 300, 3) with its boxes inside the frame, one
+   batch made twice from the same ``np.random`` and ``random`` seeds equal
+   bit for bit, finite losses; the generator's img/s alone, the end-to-end
+   train img/s, and the card's busy share over two steps
+   (``torch.profiler``). (b) SSD7 (20 classes, 300x300) with
+   ``DataAugmentationConstantInputSize``, as the SSD7 example builds it: 2
+   steps, finite losses. (c) ``host_decode_batches`` into
+   ``StreamingDeviceInput``: 4 batches of 32 through the on-device augment and
+   encode into the DP step under a one-rank NCCL group, finite losses. The
+   JPEG batch decoder is not ported (the card's machine has no libjpeg), so
+   there is no JPEG part. No NMS launch: training decodes nothing.
+
 It prints JSON lines (timings, then the kernels line), then as its last line
 ``{"ok": true, "device": {...}}``. With no CUDA device it raises before
 printing any result. Imports torch, numpy and ssd_keras_torch only.
@@ -91,6 +110,7 @@ printing any result. Imports torch, numpy and ssd_keras_torch only.
 import contextlib
 import json
 import os
+import random
 import statistics
 import subprocess
 import sys
@@ -116,8 +136,9 @@ from ssd_keras_torch import (
 from ssd_keras_torch import decoder
 from ssd_keras_torch import train as T
 from ssd_keras_torch.data import SynthVOC
+from ssd_keras_torch.data.chains import DataAugmentationConstantInputSize, SSDDataAugmentation
 from ssd_keras_torch.data.device_aug import DeviceSSDAugmentation, batch_seed, geometry_from_draws
-from ssd_keras_torch.data.streaming import StreamingDeviceInput
+from ssd_keras_torch.data.streaming import StreamingDeviceInput, host_decode_batches
 from ssd_keras_torch.decoder import decode_detections_fixed
 from ssd_keras_torch.encoder import pad_labels
 from ssd_keras_torch.eval import COCOEvalBBox, Evaluator, predict_all_to_json
@@ -233,6 +254,17 @@ EVAL_HOST_DECODE_TOL = 0.01
 FOLD_TOL = 1e-4
 # Interleaved rounds of the folded/unfolded timings.
 FOLD_ROUNDS = 10
+
+# Phase 10: the host chain at batch 32 over 256 SynthVOC images, 2 epochs of
+# 4 steps; SSD7 at batch 16 for 2 steps; 4 streamed batches.
+HOST_IMAGES = 256
+HOST_BATCH = 32
+HOST_MAX_GT = 8
+HOST_EPOCHS = 2
+HOST_STEPS_PER_EPOCH = 4
+HOST_TIMED_BATCHES = 3
+SSD7_BATCH = 16
+STREAM_BATCHES = 4
 
 
 def log(msg):
@@ -1373,6 +1405,163 @@ def eval_phase(device, card):
                        evaluator_oracle=eval_launches["evaluator_oracle"], coco=coco_launches)
 
 
+def check_host_batch(name, images, boxes, batch, size):
+    """A host-chain batch: uint8 (batch, size, size, 3), every box inside the
+    frame and not degenerate. An image may keep no box (the resize's box
+    filter can remove a crop's last one), as in the reference's chain; the
+    batch must hold some."""
+    if images.dtype != np.uint8 or images.shape != (batch, size, size, 3):
+        raise AssertionError(f"{name}: images {images.dtype} {images.shape}")
+    for i, b in enumerate(boxes):
+        b = np.asarray(b).reshape(-1, 5)
+        if not (np.all(b[:, 1:] >= 0) and np.all(b[:, 1:] <= size)
+                and np.all(b[:, 3] > b[:, 1]) and np.all(b[:, 4] > b[:, 2])):
+            raise AssertionError(f"{name}: image {i} has boxes {b.tolist()}")
+    if sum(len(b) for b in boxes) == 0:
+        raise AssertionError(f"{name}: a batch without a box")
+
+
+def host_chain_phase(state, device, card):
+    """Phase 10. Returns (timing lines, its NMS launches: none)."""
+    cfg = SSDConfig.ssd300()
+    sizes = ssd300_predictor_sizes(300, 300)
+    synth = SynthVOC(HOST_IMAGES, image_size=300, split="train", seed=SEED)
+    dataset = synth.as_data_generator()
+    enc = SSDInputEncoder(cfg, sizes, max_gt_boxes=HOST_MAX_GT, device=device)
+
+    def host_chain(seed):
+        """The reference's generator (examples/ssd300_training.py), the
+        processed boxes added for the gate; seeds np.random and random."""
+        np.random.seed(seed)
+        random.seed(seed)
+        return dataset.generate(batch_size=HOST_BATCH, shuffle=True,
+                                transformations=[SSDDataAugmentation(300, 300)],
+                                label_encoder=enc,
+                                returns=["processed_images", "encoded_labels", "processed_labels"])
+
+    def checked(gen):
+        for images, y, boxes in gen:
+            check_host_batch("SSD300 host chain", images, boxes, HOST_BATCH, 300)
+            yield images, y
+
+    # (a) One batch made twice from the same seeds.
+    first, again = next(host_chain(SEED + 10)), next(host_chain(SEED + 10))
+    if not (np.array_equal(first[0], again[0]) and np.array_equal(first[1], again[1])
+            and all(np.array_equal(a, b) for a, b in zip(first[2], again[2]))):
+        raise AssertionError("host chain: one batch made twice from the same seeds differs")
+    check_host_batch("SSD300 host chain", first[0], first[2], HOST_BATCH, 300)
+    log(f"host chain: a batch made twice from the same seeds is equal bit for bit; "
+        f"{sum(len(b) for b in first[2])} boxes in {HOST_BATCH} images")
+
+    # The generator alone: augment, stack and encode on the card.
+    gen = host_chain(SEED)
+    next(gen)
+    t0 = time.perf_counter()
+    for _ in range(HOST_TIMED_BATCHES):
+        next(gen)
+    gen_s = time.perf_counter() - t0
+
+    # Training through Trainer.fit_generator from the host chain.
+    trainer = bf16_trainer(state, device)
+    launches_before = nms_kernel.launches
+    t0 = time.perf_counter()
+    history = trainer.fit_generator(checked(host_chain(SEED)),
+                                    steps_per_epoch=HOST_STEPS_PER_EPOCH, epochs=HOST_EPOCHS,
+                                    callbacks=[T.TerminateOnNaN()], verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    losses = history["loss"]
+    n_steps = HOST_EPOCHS * HOST_STEPS_PER_EPOCH
+    log(f"host-chain fit_generator bf16 batch {HOST_BATCH}: {trainer.step} steps in "
+        f"{fit_s:.2f} s (host clock), epoch losses {[round(v, 4) for v in losses]}")
+    if (len(losses) != HOST_EPOCHS or not all(np.isfinite(losses)) or trainer.terminated_on_nan
+            or trainer.step != n_steps):
+        raise AssertionError(f"host-chain training stopped or diverged: {losses}")
+    busy_wall, busy = busy_share(lambda: trainer.fit_generator(
+        checked(host_chain(SEED + 1)), steps_per_epoch=2, epochs=1, verbose=False))
+    log(f"host-chain training, 2 steps under torch.profiler: {busy_wall:.2f} s, card busy "
+        f"share {busy}")
+
+    # (b) SSD7 with DataAugmentationConstantInputSize (examples/ssd7_training.py).
+    cfg7 = SSDConfig.ssd7(n_classes=20, img_height=300, img_width=300)
+    model7, sizes7 = ssd_7(cfg7, compute_dtype=torch.bfloat16, device=device,
+                           generator=torch.Generator().manual_seed(SEED))
+    enc7 = SSDInputEncoder(cfg7, sizes7, max_gt_boxes=HOST_MAX_GT, device=device)
+    np.random.seed(SEED)
+    random.seed(SEED)
+    augmentation = DataAugmentationConstantInputSize(
+        random_brightness=(-48, 48, 0.5), random_contrast=(0.5, 1.8, 0.5),
+        random_saturation=(0.5, 1.8, 0.5), random_hue=(18, 0.5), random_flip=0.5,
+        random_translate=((0.03, 0.5), (0.03, 0.5), 0.5), random_scale=(0.5, 2.0, 0.5))
+    gen7 = dataset.generate(batch_size=SSD7_BATCH, shuffle=True, transformations=[augmentation],
+                            label_encoder=enc7,
+                            returns=["processed_images", "encoded_labels", "processed_labels"])
+
+    def checked7():
+        for images, y, boxes in gen7:
+            check_host_batch("SSD7 host chain", images, boxes, len(images), 300)
+            yield images, y
+
+    opt7 = T.adam(model7.parameters(), 1e-3)
+    trainer7 = T.Trainer(model7, opt7, T.make_train_step(model7, opt7, SSDLoss()))
+    losses7 = trainer7.fit_generator(checked7(), steps_per_epoch=2, epochs=1,
+                                     verbose=False)["loss"]
+    log(f"SSD7 host chain (DataAugmentationConstantInputSize) bf16 batch {SSD7_BATCH}: "
+        f"{trainer7.step} steps, loss {losses7}")
+    if trainer7.step != 2 or not all(np.isfinite(losses7)):
+        raise AssertionError(f"SSD7 host-chain training: {trainer7.step} steps, {losses7}")
+
+    # (c) host_decode_batches into StreamingDeviceInput and the DP step.
+    store_dir = tempfile.TemporaryDirectory()
+    sh.initialize_distributed("nccl", 1, 0,
+                              store=dist.FileStore(os.path.join(store_dir.name, "store"), 1))
+    try:
+        mesh = sh.make_mesh("cuda")
+        aug = DeviceSSDAugmentation(300, 300, mesh=mesh)
+        enc_dp = SSDInputEncoder(cfg, sizes, max_gt_boxes=AUG_MAX_GT, device=device)
+        model = model_for(state, "training", torch.bfloat16, device)
+        opt = T.sgd_with_momentum(model.parameters(), T.linear_warmup_lr(BASE_LR, WARMUP_STEPS),
+                                  0.9, clipnorm=5.0)
+        step = T.make_train_step(model, opt, SSDLoss(), l2_reg=L2_REG, mesh=mesh)
+        stream = StreamingDeviceInput(
+            host_decode_batches(dataset, AUG_BATCH, 300, 300, AUG_MAX_GT, seed=SEED),
+            aug, enc_dp, seed=SEED)
+        batches = iter(stream)
+        stream_losses = []
+        for _ in range(STREAM_BATCHES):
+            x, y = next(batches)
+            if x.shape != (AUG_BATCH, 300, 300, 3) or y.shape[:2] != (AUG_BATCH, 8732):
+                raise AssertionError(f"streamed batch: {tuple(x.shape)} {tuple(y.shape)}")
+            stream_losses.append(float(step(x, y)["loss"]))
+        stream.stop()
+        batches.close()
+    finally:
+        dist.destroy_process_group()
+        store_dir.cleanup()
+    log(f"host_decode_batches -> StreamingDeviceInput -> DP step (NCCL, 1 rank): "
+        f"{STREAM_BATCHES} batches of {AUG_BATCH}, losses {[round(v, 4) for v in stream_losses]}")
+    if not all(np.isfinite(stream_losses)):
+        raise AssertionError(f"streamed host batches gave losses {stream_losses}")
+    host_launches = nms_kernel.launches - launches_before
+    if host_launches:
+        raise AssertionError("host-chain training launched the NMS kernel")
+
+    lines = [
+        dict(metric="host_chain_img_per_s", chain="SSDDataAugmentation(300, 300)",
+             path="DataGenerator.generate: augment + stack + encode on the card", batch=HOST_BATCH,
+             img_per_s=HOST_TIMED_BATCHES * HOST_BATCH / gen_s, seconds=gen_s,
+             batches=HOST_TIMED_BATCHES, timer="host clock", card=card),
+        dict(metric="ssd300_train_host_chain_img_per_s", batch=HOST_BATCH, dtype="bf16",
+             params="f32", path="host chain -> Trainer.fit_generator", steps=n_steps,
+             img_per_s=n_steps * HOST_BATCH / fit_s, seconds=fit_s,
+             busy_share=busy, busy_wall_s=busy_wall, busy_steps=2,
+             timer="host clock to a synchronize, first step included", card=card),
+    ]
+    for line in lines:
+        log(f"{line['metric']}: {json.dumps({k: v for k, v in line.items() if k != 'metric'})}")
+    return lines, host_launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; the port's main path runs on one")
@@ -1514,6 +1703,11 @@ def main():
     eval_lines, eval_launches = eval_phase(device, card)
     lines += eval_lines
 
+    # 10. Host-chain training.
+    with torch.enable_grad():
+        host_lines, host_launches = host_chain_phase(state, device, card)
+    lines += host_lines
+
     for line in lines:
         print(json.dumps(line), flush=True)
 
@@ -1525,7 +1719,7 @@ def main():
         bound_by=nms_main["bound_by"], library_ms=None, library_note=NMS_LIBRARY_NOTE,
         shape="main_path", passes=2,
         launches_by_path=dict(serving=main_launches, serving_requests=serve_launches,
-                              **dp_launches, **eval_launches),
+                              **dp_launches, **eval_launches, host_chain=host_launches),
     )]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

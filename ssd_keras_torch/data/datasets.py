@@ -13,8 +13,9 @@ PyTorch port. Three changes: ``h5py`` and ``PIL`` are imported at their first
 use, not with the module, so that the port imports without them; the HDF5
 cache resizes with ``data.geometric.resize_image``, not OpenCV; and the
 JAX package's batch decode of JPEG files through its native threaded
-decoder is left out (it comes with the host data pipeline's slice): files
-are read one by one through PIL.
+decoder (libjpeg) is left out, because the machines the port is built for
+have no libjpeg: files are read one by one through PIL, imported at the
+first read.
 """
 
 from __future__ import annotations

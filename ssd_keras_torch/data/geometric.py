@@ -1,32 +1,54 @@
-"""Geometric transforms, host-side: ``Resize`` without OpenCV.
+"""Geometric augmentation transforms (resize, flip, translate, scale, rotate),
+host-side, without OpenCV.
 
-Port of ``Resize`` from ``ssd_keras_tpu/data/geometric.py``, which resizes
-with ``cv2.resize``. The port does not use OpenCV (the machines that run it
-need not have it), so :func:`resize_image` computes what ``cv2.resize``
-computes, in NumPy:
+Port of ``ssd_keras_tpu/data/geometric.py``, which resizes with
+``cv2.resize`` and warps with ``cv2.warpAffine``. The port does not use
+OpenCV (the machines that run it need not have it), so this module computes
+in NumPy what OpenCV 5 computes:
 
-* ``INTER_LINEAR`` (the default, and the only mode the evaluator and
-  ``predict_all_to_json`` use). For uint8 images, OpenCV's fixed-point path:
-  source positions ``(d + 0.5) * scale - 0.5`` clamped to the image, 11-bit
-  weights ``round((1 - f) * 2048)`` and ``round(f * 2048)``, an integer
-  horizontal pass, and the vertical pass of OpenCV's vector code,
-  ``((b0 * (S0 >> 4)) >> 16 + (b1 * (S1 >> 4)) >> 16 + 2) >> 2``. OpenCV's
-  scalar code rounds the last step another way on some pixels, so the
-  result is within one level of ``cv2.resize`` on every pixel and equal on
-  almost all (tested against OpenCV where it is installed). An exact 2x
-  reduction averages 2x2 blocks, as OpenCV does. Float images interpolate in
-  their own precision with the same positions.
-* ``INTER_NEAREST``: source index ``floor(d * scale)``, clamped.
+:func:`resize_image` (``cv2.resize``), for uint8 and float images:
 
-OpenCV's integer codes for the modes are kept as module constants. The other
-modes (cubic, area, Lanczos) raise ``NotImplementedError``: they come with
-the host augmentation chains' slice, as do the other transforms of the JAX
-module. Transforms are callables ``(image, labels=None,
-return_inverter=False)``; inverters map predicted boxes (rows ``[class,
-conf, xmin, ymin, xmax, ymax]``) back to the pre-transform frame.
+* ``INTER_LINEAR``: source positions ``(d + 0.5) * scale - 0.5``; along x a
+  position outside the image takes the edge pixel with weight one, along y
+  the two rows are clamped but keep their weights (OpenCV resets only x).
+  uint8 runs OpenCV's fixed-point path: 11-bit weights, an integer
+  horizontal pass and the vertical pass ``((b0 * (S0 >> 4)) >> 16 + (b1 *
+  (S1 >> 4)) >> 16 + 2) >> 2``. An exact 2x reduction averages 2x2 blocks.
+  uint8 is exact; float interpolates in its own precision (within 1e-3).
+* ``INTER_NEAREST``: source index ``floor(d * scale)``, clamped. Exact.
+* ``INTER_CUBIC``: Keys' cubic with a = -0.75 on four clamped taps, in
+  float32 (OpenCV 5 computes it in float for uint8 too), rounded half to
+  even. Within one level of OpenCV; equal on all but about one pixel in ten
+  thousand (the order of OpenCV's vector additions).
+* ``INTER_AREA``: shrinking on both axes averages each output cell's source
+  area with OpenCV's weights (integer factors: the block mean); enlarging
+  on either axis is linear with OpenCV's area-mode positions. Exact.
+* ``INTER_LANCZOS4``: eight clamped taps; uint8 in 11-bit fixed point.
+  Exact for uint8.
+
+:func:`warp_affine` (``cv2.warpAffine`` with ``INTER_LINEAR`` and a constant
+border): OpenCV 5's float kernel. The map is inverted in double and cast to
+float32, the source position is ``fma(M0, x, M1 * y + M2)``, and the pixel
+is two lerps in x and one in y, each a fused multiply-add, over the four
+neighbours (a neighbour outside the image takes the border value), rounded
+half to even for uint8. Integer translations are exact copies; scale and
+right-angle rotation agree with OpenCV on all but a few pixels in ten
+thousand, within one level. A right-angle ``Rotate`` is not ``np.rot90``:
+OpenCV's result is shifted by a pixel with a border row or column, and so
+is this one.
+
+Transforms are callables ``(image, labels=None, return_inverter=False)``;
+inverters map predicted boxes (rows ``[class, conf, xmin, ymin, xmax,
+ymax]``) back to the pre-transform frame. Labels never depend on pixels and
+match the JAX package bit for bit. The random transforms draw from the
+global ``np.random`` (and ``RandomRotate`` from Python's ``random``) in the
+JAX package's order.
 """
 
 from __future__ import annotations
+
+import math
+import random as _pyrandom
 
 import numpy as np
 
@@ -34,7 +56,18 @@ from ssd_keras_torch.data.validation import DEFAULT_LABELS_FORMAT
 
 __all__ = [
     "Resize",
+    "ResizeRandomInterp",
+    "Flip",
+    "RandomFlip",
+    "Translate",
+    "RandomTranslate",
+    "Scale",
+    "RandomScale",
+    "Rotate",
+    "RandomRotate",
     "resize_image",
+    "warp_affine",
+    "rotation_matrix_2d",
     "INTER_NEAREST",
     "INTER_LINEAR",
     "INTER_CUBIC",
@@ -50,20 +83,39 @@ INTER_AREA = 3
 INTER_LANCZOS4 = 4
 
 _COEF_SCALE = 2048  # OpenCV's INTER_RESIZE_COEF_SCALE: 11-bit weights
+_F32 = np.float32
 
 
-def _linear_taps(src: int, dst: int):
+# --------------------------------------------------------------------------- #
+# Linear (and area-mode linear)
+# --------------------------------------------------------------------------- #
+
+
+def _linear_taps(src: int, dst: int, reset: bool):
     """Per output index: the two source indices and OpenCV's float weight
-    of the second, ``f``, for a ``src`` -> ``dst`` linear resize."""
+    of the second, ``f``, for a ``src`` -> ``dst`` linear resize. ``reset``
+    (the x axis) gives a position outside the image the edge pixel alone."""
     scale = 1.0 / (dst / src)  # OpenCV: scale = 1 / inv_scale, in double
-    f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
+    f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(_F32)
     s = np.floor(f).astype(np.int64)
-    f = (f - s.astype(np.float32)).astype(np.float32)
-    low, high = s < 0, s >= src - 1
-    f[low | high] = 0.0
-    s[low] = 0
-    s[high] = src - 1
-    return s, np.minimum(s + 1, src - 1), f
+    f = (f - s.astype(_F32)).astype(_F32)
+    if reset:
+        f[(s < 0) | (s >= src - 1)] = 0.0
+    return np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1), f
+
+
+def _area_linear_taps(src: int, dst: int, reset: bool):
+    """The taps of ``INTER_AREA`` when it enlarges: linear, with OpenCV's
+    area-mode positions ``s = floor(d * scale)`` and weight
+    ``frac((d + 1) - (s + 1) / scale)``."""
+    inv = dst / src
+    d = np.arange(dst)
+    s = np.floor(d * (1.0 / inv)).astype(np.int64)
+    f = ((d + 1) - (s + 1) * inv).astype(_F32)
+    f = np.where(f <= 0, _F32(0.0), (f - np.floor(f)).astype(_F32)).astype(_F32)
+    if reset:
+        f[s >= src - 1] = 0.0
+    return np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1), f
 
 
 def _fixed_weights(f: np.ndarray):
@@ -73,10 +125,9 @@ def _fixed_weights(f: np.ndarray):
     return w0, w1
 
 
-def _linear(image: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
-    h, w = image.shape[:2]
-    x0, x1, fx = _linear_taps(w, out_w)
-    y0, y1, fy = _linear_taps(h, out_h)
+def _linear(image: np.ndarray, xtaps, ytaps) -> np.ndarray:
+    x0, x1, fx = xtaps
+    y0, y1, fy = ytaps
     if image.dtype == np.uint8:
         a0, a1 = _fixed_weights(fx)
         b0, b1 = _fixed_weights(fy)
@@ -113,6 +164,164 @@ def _nearest(image: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     return image[ys][:, xs]
 
 
+# --------------------------------------------------------------------------- #
+# Area (shrinking)
+# --------------------------------------------------------------------------- #
+
+
+def _area_table(src: int, dst: int, scale: float):
+    """OpenCV's ``computeResizeAreaTab``: per output cell, its source indices
+    and float32 weights, in OpenCV's order, as (dst, taps) arrays padded
+    with weight 0."""
+    cells = []
+    for d in range(dst):
+        fs1 = d * scale
+        fs2 = fs1 + scale
+        width = min(scale, src - fs1)
+        s1, s2 = math.ceil(fs1), math.floor(fs2)
+        s2 = min(s2, src - 1)
+        s1 = min(s1, s2)
+        taps = []
+        if s1 - fs1 > 1e-3:
+            taps.append((s1 - 1, (s1 - fs1) / width))
+        taps.extend((s, 1.0 / width) for s in range(s1, s2))
+        if fs2 - s2 > 1e-3:
+            taps.append((s2, min(min(fs2 - s2, 1.0), width) / width))
+        cells.append(taps)
+    n = max(len(t) for t in cells)
+    index = np.zeros((dst, n), np.int64)
+    weight = np.zeros((dst, n), _F32)
+    for d, taps in enumerate(cells):
+        for j, (s, a) in enumerate(taps):
+            index[d, j], weight[d, j] = s, a
+    return index, weight
+
+
+def _area_shrink(image: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    h, w = image.shape[:2]
+    scale_x, scale_y = 1.0 / (out_w / w), 1.0 / (out_h / h)
+    ix, iy = int(round(scale_x)), int(round(scale_y))
+    eps = np.finfo(np.float64).eps
+    if abs(scale_x - ix) < eps and abs(scale_y - iy) < eps:  # OpenCV's fast area
+        if ix == 2 and iy == 2:
+            return _halve(image)
+        blocks = image[: out_h * iy, : out_w * ix].reshape(out_h, iy, out_w, ix, -1)
+        if image.dtype == np.uint8:
+            total = blocks.astype(np.int64).sum(axis=(1, 3)).astype(_F32)
+            return np.clip(np.rint(total * _F32(1.0 / (ix * iy))), 0, 255).astype(np.uint8)
+        acc = np.zeros((out_h, out_w, image.shape[2]), image.dtype)
+        for a in range(iy):
+            for b in range(ix):
+                acc = (acc + blocks[:, a, :, b]).astype(image.dtype)
+        return (acc * image.dtype.type(1.0 / (ix * iy))).astype(image.dtype)
+    acc_t = _F32 if image.dtype == np.uint8 else image.dtype.type
+    src = image.astype(acc_t)
+    xi, xw = _area_table(w, out_w, scale_x)
+    yi, yw = _area_table(h, out_h, scale_y)
+    rows = np.zeros((h, out_w, image.shape[2]), acc_t)
+    for j in range(xi.shape[1]):  # OpenCV's order of accumulation
+        rows = (rows + src[:, xi[:, j]] * xw[None, :, j, None].astype(acc_t)).astype(acc_t)
+    out = (yw[:, 0, None, None].astype(acc_t) * rows[yi[:, 0]]).astype(acc_t)
+    for j in range(1, yi.shape[1]):
+        out = (out + yw[:, j, None, None].astype(acc_t) * rows[yi[:, j]]).astype(acc_t)
+    if image.dtype == np.uint8:
+        return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# Cubic and Lanczos
+# --------------------------------------------------------------------------- #
+
+
+def _cubic_weights(x: np.ndarray) -> np.ndarray:
+    """OpenCV's ``interpolateCubic`` (a = -0.75) in float32."""
+    a = _F32(-0.75)
+    one = _F32(1.0)
+    x1 = (x + one).astype(_F32)
+    c0 = (((a * x1 - _F32(5.0) * a) * x1 + _F32(8.0) * a) * x1 - _F32(4.0) * a).astype(_F32)
+    c1 = (((a + _F32(2.0)) * x - (a + _F32(3.0))) * x * x + one).astype(_F32)
+    omx = (one - x).astype(_F32)
+    c2 = (((a + _F32(2.0)) * omx - (a + _F32(3.0))) * omx * omx + one).astype(_F32)
+    c3 = (one - c0 - c1 - c2).astype(_F32)
+    return np.stack([c0, c1, c2, c3], axis=-1)
+
+
+_S45 = 0.70710678118654752440084436210485
+_LANCZOS_CS = np.array([[1, 0], [-_S45, -_S45], [0, 1], [_S45, -_S45],
+                        [-1, 0], [_S45, _S45], [0, -1], [-_S45, _S45]])
+
+
+def _lanczos4_weights(x: np.ndarray) -> np.ndarray:
+    """OpenCV's ``interpolateLanczos4``: sin terms in double, weights in
+    float32 normalised by their float32 sum."""
+    y0 = -(x + _F32(3.0)).astype(np.float64) * math.pi * 0.25
+    s0, c0 = np.sin(y0), np.cos(y0)
+    coeffs = []
+    total = np.zeros_like(x, dtype=_F32)
+    for i in range(8):
+        yi = (x + _F32(3.0) - _F32(i)).astype(_F32)
+        y = -yi.astype(np.float64) * math.pi * 0.25
+        with np.errstate(divide="ignore", invalid="ignore"):
+            c = ((_LANCZOS_CS[i, 0] * s0 + _LANCZOS_CS[i, 1] * c0) / (y * y)).astype(_F32)
+        c = np.where(np.abs(yi) >= _F32(1e-6), c, _F32(1e30)).astype(_F32)
+        coeffs.append(c)
+        total = (total + c).astype(_F32)
+    inv = (_F32(1.0) / total).astype(_F32)
+    return np.stack([(c * inv).astype(_F32) for c in coeffs], axis=-1)
+
+
+def _kernel_taps(src: int, dst: int, ksize: int):
+    """Clamped source indices (dst, ksize) and float32 weights for cubic
+    (4 taps) or Lanczos (8 taps); positions are never reset at the border."""
+    scale = 1.0 / (dst / src)
+    f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(_F32)
+    s = np.floor(f).astype(np.int64)
+    f = (f - s.astype(_F32)).astype(_F32)
+    weights = _cubic_weights(f) if ksize == 4 else _lanczos4_weights(f)
+    index = s[:, None] + np.arange(ksize)[None, :] - (ksize // 2 - 1)
+    return np.clip(index, 0, src - 1), weights
+
+
+def _dense(index: np.ndarray, weights: np.ndarray, src: int) -> np.ndarray:
+    """The (dst, src) float64 matrix of clamped taps (repeated taps add)."""
+    out = np.zeros((index.shape[0], src))
+    np.add.at(out, (np.repeat(np.arange(index.shape[0]), index.shape[1]), index.ravel()),
+              weights.ravel())
+    return out
+
+
+def _separable(image: np.ndarray, out_h: int, out_w: int, ksize: int) -> np.ndarray:
+    h, w = image.shape[:2]
+    xi, xw = _kernel_taps(w, out_w, ksize)
+    yi, yw = _kernel_taps(h, out_h, ksize)
+    if image.dtype == np.uint8 and ksize == 8:
+        # OpenCV's fixed point. Every sum is an integer below 2**53, so two
+        # float64 matrix products give it exactly.
+        wx = _dense(xi, np.rint(xw * _F32(_COEF_SCALE)), w)
+        wy = _dense(yi, np.rint(yw * _F32(_COEF_SCALE)), h)
+        c = image.shape[2]
+        rows = image.astype(np.float64).transpose(0, 2, 1) @ wx.T  # (h, c, out_w)
+        total = (wy @ rows.reshape(h, c * out_w)).reshape(out_h, c, out_w)
+        total = total.astype(np.int64).transpose(0, 2, 1)
+        return np.clip((total + (1 << 21)) >> 22, 0, 255).astype(np.uint8)
+    acc_t = _F32 if image.dtype == np.uint8 else image.dtype.type
+    src = image.astype(acc_t)
+    xw, yw = xw.astype(acc_t), yw.astype(acc_t)
+    rows = (src[:, xi[:, 0]] * xw[None, :, 0, None]).astype(acc_t)
+    for j in range(1, ksize):
+        rows = (rows + src[:, xi[:, j]] * xw[None, :, j, None]).astype(acc_t)
+    out = (rows[yi[:, 0]] * yw[:, 0, None, None]).astype(acc_t)
+    for j in range(1, ksize):
+        out = (out + rows[yi[:, j]] * yw[:, j, None, None]).astype(acc_t)
+    if image.dtype == np.uint8:
+        return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+    return out
+
+
+_MODES = (INTER_NEAREST, INTER_LINEAR, INTER_CUBIC, INTER_AREA, INTER_LANCZOS4)
+
+
 def resize_image(image: np.ndarray, height: int, width: int,
                  interpolation: int = INTER_LINEAR) -> np.ndarray:
     """``cv2.resize(image, (width, height), interpolation=interpolation)``
@@ -120,23 +329,121 @@ def resize_image(image: np.ndarray, height: int, width: int,
     docstring for what is exact. An (H, W, 1) image comes back (h, w), as
     from OpenCV."""
     image = np.asarray(image)
-    if interpolation not in (INTER_LINEAR, INTER_NEAREST):
-        raise NotImplementedError(
-            f"interpolation mode {interpolation} is not ported yet: only INTER_LINEAR and "
-            "INTER_NEAREST; the others come with the host augmentation chains' slice")
+    if interpolation not in _MODES:
+        raise ValueError(f"unknown interpolation mode {interpolation}")
     if image.dtype != np.uint8 and image.dtype.kind != "f":
         raise NotImplementedError(f"resize of {image.dtype} images is not ported: uint8 or float")
     squeeze = image.ndim == 2 or image.shape[2] == 1
     planes = image.reshape(image.shape[0], image.shape[1], -1)
-    if planes.shape[:2] == (height, width):
+    h, w = planes.shape[:2]
+    if (h, w) == (height, width):
         out = planes.copy()
     elif interpolation == INTER_NEAREST:
         out = _nearest(planes, height, width)
-    elif planes.shape[0] == 2 * height and planes.shape[1] == 2 * width:
+    elif interpolation == INTER_CUBIC:
+        out = _separable(planes, height, width, 4)
+    elif interpolation == INTER_LANCZOS4:
+        out = _separable(planes, height, width, 8)
+    elif interpolation == INTER_AREA and h >= height and w >= width:
+        out = _area_shrink(planes, height, width)
+    elif interpolation == INTER_AREA:
+        out = _linear(planes, _area_linear_taps(w, width, True),
+                      _area_linear_taps(h, height, False))
+    elif h == 2 * height and w == 2 * width:
         out = _halve(planes)
     else:
-        out = _linear(planes, height, width)
+        out = _linear(planes, _linear_taps(w, width, True), _linear_taps(h, height, False))
     return out[..., 0] if squeeze else out
+
+
+# --------------------------------------------------------------------------- #
+# Affine warp
+# --------------------------------------------------------------------------- #
+
+
+def rotation_matrix_2d(center, angle: float, scale: float) -> np.ndarray:
+    """``cv2.getRotationMatrix2D``: a (2, 3) float64 map rotating by
+    ``angle`` degrees counter-clockwise about ``center`` (taken as float32,
+    as OpenCV's ``Point2f``) and scaling by ``scale``."""
+    cx, cy = float(np.float32(center[0])), float(np.float32(center[1]))
+    radians = angle * (math.pi / 180)
+    alpha = math.cos(radians) * scale
+    beta = math.sin(radians) * scale
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]])
+
+
+def _invert_affine(m) -> np.ndarray:
+    """OpenCV's inversion of a (2, 3) map, in double."""
+    m = np.asarray(m, np.float64).reshape(6).copy()
+    det = m[0] * m[4] - m[1] * m[3]
+    det = 1.0 / det if det != 0 else 0.0
+    a11, a22 = m[4] * det, m[0] * det
+    m[0] = a11
+    m[1] *= -det
+    m[3] *= -det
+    m[4] = a22
+    b1 = -m[0] * m[2] - m[1] * m[5]
+    b2 = -m[3] * m[2] - m[4] * m[5]
+    m[2], m[5] = b1, b2
+    return m
+
+
+def _fma(a, b, c, dtype):
+    """``a * b + c`` with one rounding to ``dtype`` (float32: the product
+    of two float32 values is exact in float64)."""
+    return (np.asarray(a, np.float64) * b + c).astype(dtype)
+
+
+def warp_affine(image: np.ndarray, m, dsize, border_value=0) -> np.ndarray:
+    """``cv2.warpAffine(image, m, dsize, flags=INTER_LINEAR,
+    borderMode=BORDER_CONSTANT, borderValue=border_value)`` for an (H, W) or
+    (H, W, C) uint8 or float image; ``dsize`` is (width, height), as in
+    OpenCV. See the module docstring for what is exact."""
+    image = np.asarray(image)
+    if image.dtype != np.uint8 and image.dtype.kind != "f":
+        raise NotImplementedError(f"warp of {image.dtype} images is not ported: uint8 or float")
+    squeeze = image.ndim == 2
+    planes = image.reshape(image.shape[0], image.shape[1], -1)
+    h, w, c = planes.shape
+    out_w, out_h = int(dsize[0]), int(dsize[1])
+    work = _F32 if image.dtype == np.uint8 else image.dtype.type
+    inv = _invert_affine(m).astype(work)
+    xs = np.arange(out_w, dtype=work)[None, :]
+    ys = np.arange(out_h, dtype=work)[:, None]
+    x = _fma(inv[0], xs, (inv[1] * ys + inv[2]).astype(work), work)
+    y = _fma(inv[3], xs, (inv[4] * ys + inv[5]).astype(work), work)
+    sx = np.floor(x).astype(np.int64)
+    sy = np.floor(y).astype(np.int64)
+    ax = (x - sx).astype(work)[..., None]
+    ay = (y - sy).astype(work)[..., None]
+    # OpenCV's border is a 4-value scalar padded with zeros.
+    values = np.atleast_1d(np.asarray(border_value, np.float64))
+    border = np.zeros(max(c, 4), np.float64)
+    border[: values.size] = values
+    border = border[:c].astype(work)
+    src = planes.astype(work)
+
+    def pixel(yy, xx):
+        inside = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+        value = src[np.clip(yy, 0, h - 1), np.clip(xx, 0, w - 1)]
+        return np.where(inside[..., None], value, border).astype(work)
+
+    p00, p01 = pixel(sy, sx), pixel(sy, sx + 1)
+    p10, p11 = pixel(sy + 1, sx), pixel(sy + 1, sx + 1)
+    top = _fma(ax, (p01 - p00).astype(work), p00, work)
+    bottom = _fma(ax, (p11 - p10).astype(work), p10, work)
+    out = _fma(ay, (bottom - top).astype(work), top, work)
+    if image.dtype == np.uint8:
+        out = np.clip(np.rint(out), 0, 255).astype(np.uint8)
+    else:
+        out = out.astype(image.dtype)
+    return out[..., 0] if squeeze else out
+
+
+# --------------------------------------------------------------------------- #
+# Transforms
+# --------------------------------------------------------------------------- #
 
 
 def _fmt(labels_format):
@@ -155,10 +462,8 @@ class Resize:
         box_filter=None,
         labels_format=None,
     ):
-        if interpolation_mode not in (INTER_LINEAR, INTER_NEAREST):
-            raise NotImplementedError(
-                f"interpolation mode {interpolation_mode} is not ported yet: only INTER_LINEAR "
-                "and INTER_NEAREST; the others come with the host augmentation chains' slice")
+        if interpolation_mode not in _MODES:
+            raise ValueError(f"unknown interpolation mode {interpolation_mode}")
         self.out_height = height
         self.out_width = width
         self.interpolation_mode = interpolation_mode
@@ -190,3 +495,292 @@ class Resize:
             self.box_filter.labels_format = self.labels_format
             labels = self.box_filter(labels, image_height=self.out_height, image_width=self.out_width)
         return (image, labels, inverter) if return_inverter else (image, labels)
+
+
+class ResizeRandomInterp:
+    """Resize with a randomly chosen OpenCV interpolation mode."""
+
+    DEFAULT_MODES = (
+        INTER_NEAREST,
+        INTER_LINEAR,
+        INTER_CUBIC,
+        INTER_AREA,
+        INTER_LANCZOS4,
+    )
+
+    def __init__(self, height, width, interpolation_modes=None, box_filter=None, labels_format=None):
+        self.interpolation_modes = list(interpolation_modes or self.DEFAULT_MODES)
+        self.labels_format = dict(labels_format or DEFAULT_LABELS_FORMAT)
+        self.resize = Resize(height, width, box_filter=box_filter, labels_format=self.labels_format)
+
+    def __call__(self, image, labels=None, return_inverter=False):
+        self.resize.interpolation_mode = np.random.choice(self.interpolation_modes)
+        self.resize.labels_format = self.labels_format
+        return self.resize(image, labels, return_inverter)
+
+
+class Flip:
+    """Deterministic horizontal or vertical mirror."""
+
+    def __init__(self, dim="horizontal", labels_format=None):
+        if dim not in ("horizontal", "vertical"):
+            raise ValueError("`dim` must be 'horizontal' or 'vertical'.")
+        self.dim = dim
+        self.labels_format = dict(labels_format or DEFAULT_LABELS_FORMAT)
+
+    def __call__(self, image, labels=None, return_inverter=False):
+        img_height, img_width = image.shape[:2]
+        xmin, ymin, xmax, ymax = _fmt(self.labels_format)
+        if self.dim == "horizontal":
+            image = image[:, ::-1]
+            if labels is None:
+                return image
+            labels = np.copy(labels)
+            labels[:, [xmin, xmax]] = img_width - labels[:, [xmax, xmin]]
+        else:
+            image = image[::-1]
+            if labels is None:
+                return image
+            labels = np.copy(labels)
+            labels[:, [ymin, ymax]] = img_height - labels[:, [ymax, ymin]]
+        return image, labels
+
+
+class RandomFlip:
+    def __init__(self, dim="horizontal", prob=0.5, labels_format=None):
+        self.dim = dim
+        self.prob = prob
+        self.labels_format = dict(labels_format or DEFAULT_LABELS_FORMAT)
+        self.flip = Flip(dim=dim, labels_format=self.labels_format)
+
+    def __call__(self, image, labels=None):
+        if np.random.uniform(0, 1) >= (1.0 - self.prob):
+            self.flip.labels_format = self.labels_format
+            return self.flip(image, labels)
+        return image if labels is None else (image, labels)
+
+
+class Translate:
+    """Shift an image by (dy, dx) image-size fractions; constant background."""
+
+    def __init__(self, dy, dx, clip_boxes=True, box_filter=None, background=(0, 0, 0), labels_format=None):
+        self.dy_rel = dy
+        self.dx_rel = dx
+        self.clip_boxes = clip_boxes
+        self.box_filter = box_filter
+        self.background = background
+        self.labels_format = dict(labels_format or DEFAULT_LABELS_FORMAT)
+
+    def __call__(self, image, labels=None):
+        img_height, img_width = image.shape[:2]
+        dy_abs = int(round(img_height * self.dy_rel))
+        dx_abs = int(round(img_width * self.dx_rel))
+        M = np.float32([[1, 0, dx_abs], [0, 1, dy_abs]])
+        image = warp_affine(image, M, (img_width, img_height), self.background)
+        if labels is None:
+            return image
+        xmin, ymin, xmax, ymax = _fmt(self.labels_format)
+        labels = np.copy(labels)
+        labels[:, [xmin, xmax]] += dx_abs
+        labels[:, [ymin, ymax]] += dy_abs
+        if self.box_filter is not None:
+            self.box_filter.labels_format = self.labels_format
+            labels = self.box_filter(labels, image_height=img_height, image_width=img_width)
+        if self.clip_boxes:
+            labels[:, [ymin, ymax]] = np.clip(labels[:, [ymin, ymax]], 0, img_height - 1)
+            labels[:, [xmin, xmax]] = np.clip(labels[:, [xmin, xmax]], 0, img_width - 1)
+        return image, labels
+
+
+class _TrialBased:
+    """The retry loop shared by RandomTranslate and RandomScale.
+
+    Draws candidate transform parameters up to ``n_trials_max`` times,
+    accepting the first whose transformed boxes pass the image validator;
+    falls back to the unaltered input.
+    """
+
+    def __call__(self, image, labels=None):
+        if np.random.uniform(0, 1) < (1.0 - self.prob):
+            return image if labels is None else (image, labels)
+
+        img_height, img_width = image.shape[:2]
+        if self.image_validator is not None:
+            self.image_validator.labels_format = self.labels_format
+        self._op.labels_format = self.labels_format
+
+        for _ in range(max(1, self.n_trials_max)):
+            self._draw(img_height, img_width)
+            if labels is None or self.image_validator is None:
+                return self._op(image, labels)
+            candidate = self._transform_labels(labels, img_height, img_width)
+            if self.image_validator(candidate, image_height=img_height, image_width=img_width):
+                return self._op(image, labels)
+        return image if labels is None else (image, labels)
+
+
+class RandomTranslate(_TrialBased):
+    def __init__(
+        self,
+        dy_minmax=(0.03, 0.3),
+        dx_minmax=(0.03, 0.3),
+        prob=0.5,
+        clip_boxes=True,
+        box_filter=None,
+        image_validator=None,
+        n_trials_max=3,
+        background=(0, 0, 0),
+        labels_format=None,
+    ):
+        if dy_minmax[0] > dy_minmax[1] or dx_minmax[0] > dx_minmax[1]:
+            raise ValueError("min must not exceed max in dy_minmax/dx_minmax.")
+        if dy_minmax[0] < 0 or dx_minmax[0] < 0:
+            raise ValueError("dy_minmax/dx_minmax must be non-negative.")
+        self.dy_minmax = dy_minmax
+        self.dx_minmax = dx_minmax
+        self.prob = prob
+        self.image_validator = image_validator
+        self.n_trials_max = n_trials_max
+        self.labels_format = dict(labels_format or DEFAULT_LABELS_FORMAT)
+        self._op = Translate(
+            dy=0, dx=0, clip_boxes=clip_boxes, box_filter=box_filter,
+            background=background, labels_format=self.labels_format,
+        )
+
+    def _draw(self, img_height, img_width):
+        dy_abs = np.random.uniform(self.dy_minmax[0], self.dy_minmax[1])
+        dx_abs = np.random.uniform(self.dx_minmax[0], self.dx_minmax[1])
+        self._op.dy_rel = np.random.choice([-dy_abs, dy_abs])
+        self._op.dx_rel = np.random.choice([-dx_abs, dx_abs])
+
+    def _transform_labels(self, labels, img_height, img_width):
+        xmin, ymin, xmax, ymax = _fmt(self.labels_format)
+        out = np.copy(labels)
+        out[:, [ymin, ymax]] += int(round(img_height * self._op.dy_rel))
+        out[:, [xmin, xmax]] += int(round(img_width * self._op.dx_rel))
+        return out
+
+
+class Scale:
+    """Zoom in/out about the image center; box corners follow the affine map."""
+
+    def __init__(self, factor, clip_boxes=True, box_filter=None, background=(0, 0, 0), labels_format=None):
+        if factor <= 0:
+            raise ValueError("`factor` must be > 0.")
+        self.factor = factor
+        self.clip_boxes = clip_boxes
+        self.box_filter = box_filter
+        self.background = background
+        self.labels_format = dict(labels_format or DEFAULT_LABELS_FORMAT)
+
+    def __call__(self, image, labels=None):
+        img_height, img_width = image.shape[:2]
+        M = rotation_matrix_2d((img_width / 2, img_height / 2), 0, self.factor)
+        image = warp_affine(image, M, (img_width, img_height), self.background)
+        if labels is None:
+            return image
+        xmin, ymin, xmax, ymax = _fmt(self.labels_format)
+        labels = np.copy(labels)
+        labels = _affine_corners(labels, M, xmin, ymin, xmax, ymax)
+        if self.box_filter is not None:
+            self.box_filter.labels_format = self.labels_format
+            labels = self.box_filter(labels, image_height=img_height, image_width=img_width)
+        if self.clip_boxes:
+            labels[:, [ymin, ymax]] = np.clip(labels[:, [ymin, ymax]], 0, img_height - 1)
+            labels[:, [xmin, xmax]] = np.clip(labels[:, [xmin, xmax]], 0, img_width - 1)
+        return image, labels
+
+
+def _affine_corners(labels, M, xmin, ymin, xmax, ymax):
+    """Map the (xmin,ymin) and (xmax,ymax) corners of each box through M."""
+    n = labels.shape[0]
+    tl = np.stack([labels[:, xmin], labels[:, ymin], np.ones(n)])
+    br = np.stack([labels[:, xmax], labels[:, ymax], np.ones(n)])
+    labels[:, [xmin, ymin]] = np.round(M @ tl).T.astype(np.int64)
+    labels[:, [xmax, ymax]] = np.round(M @ br).T.astype(np.int64)
+    return labels
+
+
+class RandomScale(_TrialBased):
+    def __init__(
+        self,
+        min_factor=0.5,
+        max_factor=1.5,
+        prob=0.5,
+        clip_boxes=True,
+        box_filter=None,
+        image_validator=None,
+        n_trials_max=3,
+        background=(0, 0, 0),
+        labels_format=None,
+    ):
+        if not 0 < min_factor <= max_factor:
+            raise ValueError("It must be 0 < min_factor <= max_factor.")
+        self.min_factor = min_factor
+        self.max_factor = max_factor
+        self.prob = prob
+        self.image_validator = image_validator
+        self.n_trials_max = n_trials_max
+        self.labels_format = dict(labels_format or DEFAULT_LABELS_FORMAT)
+        self._op = Scale(
+            factor=1.0, clip_boxes=clip_boxes, box_filter=box_filter,
+            background=background, labels_format=self.labels_format,
+        )
+        self._img_hw = None
+
+    def _draw(self, img_height, img_width):
+        self._op.factor = np.random.uniform(self.min_factor, self.max_factor)
+        self._img_hw = (img_height, img_width)
+
+    def _transform_labels(self, labels, img_height, img_width):
+        xmin, ymin, xmax, ymax = _fmt(self.labels_format)
+        M = rotation_matrix_2d((img_width / 2, img_height / 2), 0, self._op.factor)
+        return _affine_corners(np.copy(labels), M, xmin, ymin, xmax, ymax)
+
+
+class Rotate:
+    """Rotate counter-clockwise by 90/180/270 degrees (dims swap for 90/270)."""
+
+    def __init__(self, angle, labels_format=None):
+        if angle not in (90, 180, 270):
+            raise ValueError("`angle` must be one of 90, 180, 270.")
+        self.angle = angle
+        self.labels_format = dict(labels_format or DEFAULT_LABELS_FORMAT)
+
+    def __call__(self, image, labels=None):
+        img_height, img_width = image.shape[:2]
+        M = rotation_matrix_2d((img_width / 2, img_height / 2), self.angle, 1)
+        cos_a, sin_a = np.abs(M[0, 0]), np.abs(M[0, 1])
+        new_w = int(img_height * sin_a + img_width * cos_a)
+        new_h = int(img_height * cos_a + img_width * sin_a)
+        M[1, 2] += (new_h - img_height) / 2
+        M[0, 2] += (new_w - img_width) / 2
+        image = warp_affine(image, M, (new_w, new_h))
+        if labels is None:
+            return image
+        xmin, ymin, xmax, ymax = _fmt(self.labels_format)
+        labels = _affine_corners(np.copy(labels), M, xmin, ymin, xmax, ymax)
+        # The affine map moves corners; restore min<max ordering per axis.
+        if self.angle in (90, 180):
+            labels[:, [ymax, ymin]] = labels[:, [ymin, ymax]]
+        if self.angle in (180, 270):
+            labels[:, [xmax, xmin]] = labels[:, [xmin, xmax]]
+        return image, labels
+
+
+class RandomRotate:
+    def __init__(self, angles=(90, 180, 270), prob=0.5, labels_format=None):
+        for angle in angles:
+            if angle not in (90, 180, 270):
+                raise ValueError("`angles` may only contain 90, 180, 270.")
+        self.angles = list(angles)
+        self.prob = prob
+        self.labels_format = dict(labels_format or DEFAULT_LABELS_FORMAT)
+        self.rotate = Rotate(angle=90, labels_format=self.labels_format)
+
+    def __call__(self, image, labels=None):
+        if np.random.uniform(0, 1) >= (1.0 - self.prob):
+            self.rotate.angle = _pyrandom.choice(self.angles)
+            self.rotate.labels_format = self.labels_format
+            return self.rotate(image, labels)
+        return image if labels is None else (image, labels)

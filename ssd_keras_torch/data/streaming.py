@@ -1,7 +1,8 @@
 """Streaming device input for datasets larger than device memory (PyTorch).
 
-Port of ``ssd_keras_tpu/data/streaming.py:StreamingDeviceInput``. The
-resident path uploads a decoded uint8 split once and gathers batches on the
+Port of ``ssd_keras_tpu/data/streaming.py``: :func:`host_decode_batches`
+makes the host batches and :class:`StreamingDeviceInput` feeds them to the
+card. The resident path uploads a decoded uint8 split once and gathers batches on the
 card; this one streams host batches through a double-buffered upload into
 the same augment + encode:
 
@@ -21,14 +22,15 @@ the same augment + encode:
 Batch ``i`` of a stream equals the direct path ``encode(aug(batch_seed(seed,
 i), ...))`` on the same host batch bit for bit: the same ops on the same
 device. Under a data mesh each rank streams its own rows of each global
-batch (``host_decode_batches`` with a shard index, in the JAX package) and
-passes the seed every rank shares. Pixels cross the link as uint8. All
-state belongs to the stream object: no program or buffer is shared through
-a process-wide cache.
+batch (:func:`host_decode_batches` with a shard index) and passes the
+seed every rank shares. Pixels cross the link as uint8. All state belongs
+to the stream object: no program or buffer is shared through a
+process-wide cache.
 """
 
 from __future__ import annotations
 
+import itertools
 from collections import deque
 from typing import Iterator, Optional
 
@@ -38,7 +40,54 @@ import torch
 from ssd_keras_torch.data.device_aug import batch_seed
 from ssd_keras_torch.data.prefetch import PrefetchGenerator
 
-__all__ = ["StreamingDeviceInput"]
+__all__ = ["StreamingDeviceInput", "host_decode_batches"]
+
+
+def host_decode_batches(dataset, batch_size: int, img_height: int, img_width: int,
+                        max_gt_boxes: int, shuffle: bool = True, shard_index: int = 0,
+                        num_shards: int = 1, seed: Optional[int] = None):
+    """Endless host batches ``(uint8 images, padded labels, counts)``.
+
+    The host's whole job per step: decode, 3-channel conversion, one
+    fixed-size resize, label padding; augmentation and encoding run on the
+    device. Labels are resized with the image (the device chain expects
+    boxes in the resized frame, as the resident path does).
+
+    Sharding (``shard_index`` / ``num_shards``): every rank runs the same
+    generator and takes every ``num_shards``-th batch, so the ranks' local
+    batches are disjoint and together form the global batch sequence. With
+    ``shuffle=True`` this needs a ``seed``, so that every rank draws the same
+    permutations (the generator seeds the global ``np.random``, whose
+    permutations ``DataGenerator.generate`` draws).
+    """
+    from ssd_keras_torch.data.geometric import Resize
+    from ssd_keras_torch.data.photometric import ConvertTo3Channels
+    from ssd_keras_torch.encoder import pad_labels
+
+    if not (0 <= shard_index < num_shards):
+        raise ValueError(
+            f"shard_index {shard_index} out of range for {num_shards} shards.")
+    if num_shards > 1 and shuffle and seed is None:
+        raise ValueError(
+            "Sharded host_decode_batches with shuffle=True needs a seed so "
+            "every process draws identical permutations (disjoint shards).")
+    if seed is not None:
+        np.random.seed(seed)
+
+    gen = dataset.generate(
+        batch_size=batch_size,
+        shuffle=shuffle,
+        transformations=[ConvertTo3Channels(), Resize(img_height, img_width)],
+        label_encoder=None,
+        returns=["processed_images", "processed_labels"],
+        keep_images_without_gt=True,
+    )
+    if num_shards > 1:
+        gen = itertools.islice(gen, shard_index, None, num_shards)
+    for images, labels in gen:
+        u8 = np.clip(np.rint(np.asarray(images)), 0, 255).astype(np.uint8)
+        padded, counts = pad_labels(list(labels), max_gt_boxes, truncate=True)
+        yield u8, padded, counts
 
 
 class _PinnedRing:

@@ -14,12 +14,15 @@ import contextlib
 import contextvars
 from typing import Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["BatchNorm", "batch_statistics_over", "L2Normalization", "preprocess_input",
-           "fuse_head_params", "fused_prediction_heads"]
+from ssd_keras_torch.ops.anchors import anchor_grid_for_layer
+
+__all__ = ["BatchNorm", "batch_statistics_over", "L2Normalization", "AnchorBoxes",
+           "preprocess_input", "fuse_head_params", "fused_prediction_heads"]
 
 # The process group over whose ranks BatchNorm takes its batch statistics,
 # set only inside ``batch_statistics_over``.
@@ -56,6 +59,57 @@ class L2Normalization(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         norm = torch.sqrt(torch.clamp_min(torch.sum(x * x, dim=1, keepdim=True), 1e-12))
         return x / norm * self.gamma.to(x.dtype)[None, :, None, None]
+
+
+class AnchorBoxes(nn.Module):
+    """Anchor constants for one predictor layer, for custom models.
+
+    The built-in SSD300/512/7 models take their anchors from
+    ``SSDConfig.anchor_tensor``; this module is for users composing their own
+    backbones in the style of the reference's ``AnchorBoxes`` Keras layer
+    (keras_layers/keras_layer_AnchorBoxes.py:27). Given an NCHW feature map
+    ``(B, ch, fh, fw)`` it returns the ``(B, fh, fw, n_boxes, 8)`` float32
+    anchors and variances on the feature map's device, the values of the JAX
+    package's layer (which takes its map as (B, fh, fw, ch)). They are
+    computed once per map size and device.
+    """
+
+    def __init__(self, img_height: int, img_width: int, this_scale: float, next_scale: float,
+                 aspect_ratios: Sequence[float] = (0.5, 1.0, 2.0),
+                 two_boxes_for_ar1: bool = True, this_steps: Optional[float] = None,
+                 this_offsets: Optional[float] = None, clip_boxes: bool = False,
+                 variances: Sequence[float] = (0.1, 0.1, 0.2, 0.2), coords: str = "centroids",
+                 normalize_coords: bool = True):
+        super().__init__()
+        self.img_height, self.img_width = img_height, img_width
+        self.this_scale, self.next_scale = this_scale, next_scale
+        self.aspect_ratios = tuple(aspect_ratios)
+        self.two_boxes_for_ar1 = two_boxes_for_ar1
+        self.this_steps, self.this_offsets = this_steps, this_offsets
+        self.clip_boxes = clip_boxes
+        self.variances = tuple(variances)
+        self.coords = coords
+        self.normalize_coords = normalize_coords
+        self._anchors = {}
+
+    def _constant(self, fh: int, fw: int, device) -> torch.Tensor:
+        key = (fh, fw, str(device))
+        if key not in self._anchors:
+            grid = anchor_grid_for_layer(
+                self.img_height, self.img_width, (fh, fw), list(self.aspect_ratios),
+                self.this_scale, self.next_scale, two_boxes_for_ar1=self.two_boxes_for_ar1,
+                this_steps=self.this_steps, this_offsets=self.this_offsets,
+                clip_boxes=self.clip_boxes, normalize_coords=self.normalize_coords,
+                coords=self.coords,
+            )
+            var = np.broadcast_to(np.asarray(self.variances, np.float64), grid.shape)
+            self._anchors[key] = torch.from_numpy(
+                np.concatenate([grid, var], axis=-1).astype(np.float32)).to(device)
+        return self._anchors[key]
+
+    def forward(self, feature_map: torch.Tensor) -> torch.Tensor:
+        anchors = self._constant(feature_map.shape[2], feature_map.shape[3], feature_map.device)
+        return anchors[None].expand((feature_map.shape[0],) + anchors.shape)
 
 
 class BatchNorm(nn.Module):

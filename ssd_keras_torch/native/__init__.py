@@ -11,8 +11,8 @@ load raises ``RuntimeError`` with the compiler's message. The NumPy loops
 the JAX package falls back to are the plain versions here, called by name
 (``decoder.greedy_nms_numpy``, ``Evaluator.match_predictions_numpy``).
 
-The JAX package's threaded JPEG decoder (``ssd_jpeg.cpp``) is not ported
-yet: it belongs to the host data pipeline's slice.
+The JAX package's threaded JPEG decoder (``ssd_jpeg.cpp``) is not ported:
+it links libjpeg, which the machines the port is built for do not have.
 """
 
 from __future__ import annotations

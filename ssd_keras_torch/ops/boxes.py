@@ -25,8 +25,8 @@ import numpy as np
 import torch
 
 __all__ = [
-    "border_delta", "convert_coordinates", "corner_indices", "intersection_area", "iou",
-    "intersection_area_np", "iou_np",
+    "border_delta", "convert_coordinates", "convert_coordinates2", "corner_indices",
+    "intersection_area", "iou", "intersection_area_np", "iou_np",
 ]
 
 _CONVERSIONS = {
@@ -112,6 +112,50 @@ def convert_coordinates(tensor, start_index, conversion, border_pixels="half"):
         ],
         axis=-1,
     )
+
+
+_M_MINMAX2CENTROIDS = np.array(
+    [[0.5, 0.0, -1.0, 0.0],
+     [0.5, 0.0, 1.0, 0.0],
+     [0.0, 0.5, 0.0, -1.0],
+     [0.0, 0.5, 0.0, 1.0]]
+)
+_M_CENTROIDS2MINMAX = np.array(
+    [[1.0, 1.0, 0.0, 0.0],
+     [0.0, 0.0, 1.0, 1.0],
+     [-0.5, 0.5, 0.0, 0.0],
+     [0.0, 0.0, -0.5, 0.5]]
+)
+
+
+def convert_coordinates2(tensor, start_index, conversion):
+    """Matrix-multiplication variant of :func:`convert_coordinates`.
+
+    Supports 'minmax2centroids' and 'centroids2minmax' only (the two
+    conversions expressible as one linear map). Takes a NumPy array or a
+    torch tensor, as :func:`convert_coordinates` does.
+    """
+    if conversion == "minmax2centroids":
+        m = _M_MINMAX2CENTROIDS
+    elif conversion == "centroids2minmax":
+        m = _M_CENTROIDS2MINMAX
+    else:
+        raise ValueError(
+            "Supported conversions: 'minmax2centroids', 'centroids2minmax'; "
+            f"got {conversion!r}."
+        )
+    is_torch = isinstance(tensor, torch.Tensor)
+    if not is_torch:
+        tensor = np.asarray(tensor)
+    ind = start_index if start_index >= 0 else tensor.shape[-1] + start_index
+    if is_torch:
+        converted = tensor[..., ind: ind + 4] @ torch.as_tensor(m, dtype=tensor.dtype,
+                                                                device=tensor.device)
+        return torch.cat([tensor[..., :ind].to(converted.dtype), converted,
+                          tensor[..., ind + 4:].to(converted.dtype)], dim=-1)
+    converted = tensor[..., ind: ind + 4] @ np.asarray(m, dtype=tensor.dtype)
+    return np.concatenate([tensor[..., :ind].astype(converted.dtype), converted,
+                           tensor[..., ind + 4:].astype(converted.dtype)], axis=-1)
 
 
 def _split_corners(boxes, coords):

@@ -4,9 +4,12 @@ Port of ``ssd_keras_tpu/predictor.py``. :class:`SSDPredictor` takes images of
 any size, uploads them as uint8 from pinned memory, resizes them on the
 model's device (bilinear with antialiasing, the triangle filter PIL's
 ``Image.BILINEAR`` uses), runs an ``inference`` or ``inference_fast`` model,
-and maps the detections back to each image's own pixel frame. Inputs that
-PIL must normalise first (grayscale, RGBA, palette) are resized on the host.
-Requests are chunked and padded to the predictor's batch size.
+and maps the detections back to each image's own pixel frame. Grayscale,
+gray-alpha and RGBA inputs are made RGB first, as PIL's ``convert("RGB")``
+makes them (gray planes repeated, alpha dropped), and then take the same
+path. With ``resize_on_device=False`` the host resizes instead, with
+:func:`resize_bilinear_pil`, PIL's ``Image.BILINEAR`` in NumPy. No PIL is
+needed. Requests are chunked and padded to the predictor's batch size.
 """
 
 from __future__ import annotations
@@ -19,7 +22,69 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["SSDPredictor", "device_resize_batch"]
+from ssd_keras_torch.data.photometric import ConvertTo3Channels
+
+__all__ = ["SSDPredictor", "device_resize_batch", "resize_bilinear_pil", "to_rgb"]
+
+_PRECISION_BITS = 22  # PIL's fixed-point precision for 8-bit resampling
+
+
+def _pil_bilinear_taps(in_size: int, out_size: int):
+    """PIL's ``precompute_coeffs`` and ``normalize_coeffs_8bpc`` for the
+    bilinear (triangle) filter: a (out_size, in_size) int64 matrix of
+    22-bit weights."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    weights = np.zeros((out_size, in_size), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        x = np.arange(xmax) + xmin
+        k = np.maximum(1.0 - np.abs((x - center + 0.5) * (1.0 / filterscale)), 0.0)
+        total = 0.0
+        for w in k:  # in order, as PIL sums
+            total += w
+        if total != 0.0:
+            k = k / total
+        fixed = k * (1 << _PRECISION_BITS)
+        weights[xx, xmin:xmin + xmax] = np.where(k < 0, -0.5 + fixed, 0.5 + fixed).astype(np.int64)
+    return weights
+
+
+def _pil_pass(image: np.ndarray, weights: np.ndarray, axis: int) -> np.ndarray:
+    """One 8-bit resampling pass of PIL along ``axis`` (0 rows, 1 columns)."""
+    # Integer sums below 2**53: exact as a float64 matrix product.
+    moved = np.moveaxis(image.astype(np.float64), axis, -1)
+    acc = (moved @ weights.T.astype(np.float64)).astype(np.int64) + (1 << (_PRECISION_BITS - 1))
+    out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, -1, axis)
+
+
+def resize_bilinear_pil(image: np.ndarray, out_height: int, out_width: int) -> np.ndarray:
+    """``Image.fromarray(image).resize((out_width, out_height),
+    Image.BILINEAR)`` for a uint8 (H, W, C) image, in NumPy: a triangle
+    filter whose support grows with the reduction factor, PIL's 22-bit
+    fixed-point weights, and a horizontal pass then a vertical one, each
+    rounded to uint8."""
+    image = np.asarray(image, np.uint8)
+    h, w = image.shape[:2]
+    if w != out_width:
+        image = _pil_pass(image, _pil_bilinear_taps(w, out_width), 1)
+    if h != out_height:
+        image = _pil_pass(image, _pil_bilinear_taps(h, out_height), 0)
+    return image.copy()
+
+
+def to_rgb(image: np.ndarray) -> np.ndarray:
+    """A uint8 image as (H, W, 3), as PIL's ``convert("RGB")`` makes it from
+    the ``L``, ``LA`` and ``RGBA`` arrays ``Image.fromarray`` reads: gray
+    planes repeated, alpha dropped."""
+    image = np.asarray(image, np.uint8)
+    if image.ndim == 3 and image.shape[2] == 2:
+        image = image[..., 0]
+    return ConvertTo3Channels()(image)
 
 
 def device_resize_batch(images: torch.Tensor, out_height: int, out_width: int) -> torch.Tensor:
@@ -45,7 +110,8 @@ class SSDPredictor:
       confidence_thresh: post-filter on returned rows (the model's decode
         already applied its configured threshold, NMS and top-k).
       resize_on_device: resize on the model's device (default). ``False``
-        resizes every non-model-size input on the host with PIL.
+        resizes every non-model-size input on the host with
+        :func:`resize_bilinear_pil`.
     """
 
     def __init__(self, model: nn.Module, batch_size: int = 8,
@@ -61,18 +127,6 @@ class SSDPredictor:
         self.confidence_thresh = confidence_thresh
         self.resize_on_device = resize_on_device
         self._model_hw = (self.config.img_height, self.config.img_width)
-
-    def _resize_host(self, image: np.ndarray) -> np.ndarray:
-        """PIL resize for inputs the device path does not take directly."""
-        from PIL import Image
-
-        h, w = self._model_hw
-        return np.asarray(
-            Image.fromarray(np.asarray(image, np.uint8)).convert("RGB").resize(
-                (w, h), Image.BILINEAR
-            ),
-            dtype=np.float32,
-        )
 
     def _upload(self, batch: np.ndarray) -> torch.Tensor:
         host = torch.from_numpy(batch)
@@ -99,11 +153,10 @@ class SSDPredictor:
             image = np.asarray(image)
             ih, iw = image.shape[:2]
             scales.append((iw / w, ih / h))
-            device_ok = image.ndim == 3 and image.shape[2] == 3 and (
-                self.resize_on_device or (ih, iw) == (h, w)
-            )
-            if not device_ok:
-                image = self._resize_host(image)
+            if not (image.ndim == 3 and image.shape[2] == 3):
+                image = to_rgb(image)
+            if not self.resize_on_device and (ih, iw) != (h, w):
+                image = resize_bilinear_pil(image, h, w).astype(np.float32)
                 ih, iw = h, w
             idxs, arrs = groups.setdefault((ih, iw, image.dtype.str), ([], []))
             idxs.append(i)

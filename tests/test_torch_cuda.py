@@ -6,7 +6,8 @@ scratch kept per stream), the training slice
 a one-rank NCCL step against the plain step, the dry run on two gloo ranks
 sharing the card), and the evaluation path (SSD512 against the CPU, the
 evaluator on the card against the CPU, the COCO tools' lanes, the host C++
-built with g++).
+built with g++), the predictor on gray and RGBA frames (no PIL), and the
+host-chain Trainer.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither JAX nor the JAX package, so it also runs on a machine with
@@ -171,6 +172,51 @@ def test_predictor_serves_on_card(cuda):
     assert len(out) == 3
     for dets in out:
         assert dets.shape[1] == 6 and len(dets) > 0 and np.isfinite(dets).all()
+
+
+def test_predictor_takes_gray_and_rgba_frames_on_card(cuda):
+    """Gray and RGBA frames need no PIL: made RGB on the host, then resized
+    on the card (or on the host with ``resize_on_device=False``); each gives
+    the detections of its RGB-converted frame."""
+    model, _ = ssd_300(SSDConfig.ssd300(), mode="inference", device=cuda,
+                       generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.conv1_1.weight.mul_(0.01)
+    rng = np.random.RandomState(3)
+    gray = rng.randint(0, 256, (240, 320), dtype=np.uint8)
+    rgba = rng.randint(0, 256, (300, 300, 4), dtype=np.uint8)
+    rgb = [np.repeat(gray[..., None], 3, -1), rgba[..., :3]]
+    for resize_on_device in (True, False):
+        predictor = SSDPredictor(model, batch_size=2, resize_on_device=resize_on_device)
+        before = nms_kernel.launches
+        out = predictor.predict([gray, rgba])
+        assert nms_kernel.launches > before
+        for dets, ref in zip(out, predictor.predict(rgb)):
+            assert dets.shape[1] == 6 and len(dets) > 0 and np.isfinite(dets).all()
+            np.testing.assert_array_equal(dets, ref)
+
+
+def test_host_chain_trainer_steps_on_card(cuda):
+    """Two bf16 steps of SSD7 from ``DataGenerator.generate`` with
+    ``DataAugmentationConstantInputSize`` and an encoder on the card."""
+    import random
+
+    from ssd_keras_torch.data.chains import DataAugmentationConstantInputSize
+
+    cfg = SSDConfig.ssd7(n_classes=20, img_height=300, img_width=300)
+    model, sizes = ssd_7(cfg, compute_dtype=torch.bfloat16, device=cuda,
+                         generator=torch.Generator().manual_seed(0))
+    encoder = SSDInputEncoder(cfg, sizes, max_gt_boxes=8, device=cuda)
+    gen = SynthVOC(8, image_size=300, seed=1).as_data_generator()
+    np.random.seed(0)
+    random.seed(0)
+    batches = gen.generate(batch_size=4, shuffle=True,
+                           transformations=[DataAugmentationConstantInputSize()],
+                           label_encoder=encoder, returns=["processed_images", "encoded_labels"])
+    opt = T.adam(model.parameters(), 1e-4)
+    trainer = T.Trainer(model, opt, T.make_train_step(model, opt, SSDLoss()))
+    history = trainer.fit_generator(batches, steps_per_epoch=2, epochs=1, verbose=False)
+    assert trainer.step == 2 and np.isfinite(history["loss"]).all()
 
 
 # Card-vs-CPU tolerances of the training slice (as chip_smoke.py states

@@ -201,9 +201,12 @@ def test_resize_constants_and_unported_modes():
     for name in ("INTER_NEAREST", "INTER_LINEAR", "INTER_CUBIC", "INTER_AREA", "INTER_LANCZOS4"):
         assert getattr(geometric, name) == getattr(cv2, name)
     for mode in (cv2.INTER_CUBIC, cv2.INTER_AREA, cv2.INTER_LANCZOS4):
-        with pytest.raises(NotImplementedError, match="slice"):
+        assert geometric.Resize(10, 10, interpolation_mode=mode).interpolation_mode == mode
+        assert geometric.resize_image(np.zeros((4, 4, 3), np.uint8), 2, 2, mode).shape == (2, 2, 3)
+    for mode in (cv2.INTER_LINEAR_EXACT, 7):  # not modes of the JAX package's Resize
+        with pytest.raises(ValueError, match="interpolation mode"):
             geometric.Resize(10, 10, interpolation_mode=mode)
-        with pytest.raises(NotImplementedError, match="slice"):
+        with pytest.raises(ValueError, match="interpolation mode"):
             geometric.resize_image(np.zeros((4, 4, 3), np.uint8), 2, 2, mode)
     with pytest.raises(NotImplementedError, match="uint8 or float"):
         geometric.resize_image(np.zeros((4, 4, 3), np.uint16), 2, 2)

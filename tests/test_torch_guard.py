@@ -37,12 +37,48 @@ def test_import_needs_neither_jax_nor_the_jax_package():
         "        'ssd_keras_torch.eval.cocoeval', 'ssd_keras_torch.data.datasets',\n"
         "        'ssd_keras_torch.data.geometric', 'ssd_keras_torch.data.patch_sampling',\n"
         "        'ssd_keras_torch.data.validation', 'ssd_keras_torch.data.misc',\n"
-        "        'ssd_keras_torch.data.photometric'} <= set(sys.modules)\n"
+        "        'ssd_keras_torch.data.photometric', 'ssd_keras_torch.data.chains',\n"
+        "        'ssd_keras_torch.utils.visualization', 'ssd_keras_torch.models.layers',\n"
+        "        'ssd_keras_torch.predictor'} <= set(sys.modules)\n"
         "bad = {'jax', 'flax', 'ssd_keras_tpu', 'h5py', 'PIL', 'triton', 'cv2', 'bs4'}\n"
         "bad &= set(sys.modules)\n"
         "from ssd_keras_torch import native\n"
         "assert native.load_library.cache_info().currsize == 0  # nothing built at import\n"
         "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+def test_host_chains_run_with_opencv_pil_and_jax_absent():
+    """With ``cv2``, ``PIL``, ``jax`` and ``ssd_keras_tpu`` made unimportable,
+    every module of the port imports, the four chains run on a SynthVOC
+    image (every resize mode and warp included), and the predictor's host
+    resize and RGB conversion run."""
+    code = (
+        "import importlib.abc, sys\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in {'cv2', 'PIL', 'jax', 'flax', 'ssd_keras_tpu'}:\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import importlib, pkgutil, random, numpy as np, ssd_keras_torch\n"
+        "for m in pkgutil.walk_packages(ssd_keras_torch.__path__, 'ssd_keras_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from ssd_keras_torch.data import SynthVOC, chains, geometric\n"
+        "from ssd_keras_torch.predictor import resize_bilinear_pil, to_rgb\n"
+        "img, lab = SynthVOC(1, image_size=96).render(0)\n"
+        "for make in (lambda: chains.SSDDataAugmentation(96, 96),\n"
+        "             chains.DataAugmentationConstantInputSize,\n"
+        "             lambda: chains.DataAugmentationVariableInputSize(64, 64),\n"
+        "             lambda: chains.DataAugmentationSatellite(64, 64)):\n"
+        "    for seed in range(4):\n"
+        "        np.random.seed(seed); random.seed(seed)\n"
+        "        out, boxes = make()(img.copy(), lab.astype(float))\n"
+        "        assert out.dtype == np.uint8 and out.ndim == 3\n"
+        "for mode in range(5):\n"
+        "    assert geometric.resize_image(img, 50, 70, mode).shape == (50, 70, 3)\n"
+        "assert geometric.Rotate(90)(img).shape == (96, 96, 3)\n"
+        "assert resize_bilinear_pil(to_rgb(img[..., 0]), 40, 30).shape == (40, 30, 3)\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 

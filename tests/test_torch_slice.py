@@ -19,7 +19,8 @@ from ssd_keras_tpu.models import ssd_300 as jax_ssd_300
 from ssd_keras_tpu.predictor import device_resize_batch as jax_resize
 from ssd_keras_torch import SSDConfig, SSDPredictor, from_flax_params, load_keras_h5_weights, ssd_300
 from ssd_keras_torch.kernels import nms as nms_kernel
-from ssd_keras_torch.predictor import device_resize_batch
+from ssd_keras_torch.predictor import device_resize_batch, resize_bilinear_pil
+from ssd_keras_tpu.predictor import SSDPredictor as JaxSSDPredictor
 
 torch.set_num_threads(2)
 
@@ -148,8 +149,9 @@ def test_predictor_answers_requests(shared):
 
 
 def test_predictor_host_resize_and_filter(shared):
-    """The PIL host path (a grayscale frame; ``resize_on_device=False``) and
-    the ``confidence_thresh`` post-filter."""
+    """The host paths (a grayscale frame made RGB; ``resize_on_device=False``,
+    PIL's bilinear resize in NumPy), held against PIL, and the
+    ``confidence_thresh`` post-filter."""
     from PIL import Image
 
     _, params, _ = shared
@@ -182,3 +184,58 @@ def test_predictor_rejects_training_model():
     model, _ = ssd_300(SSDConfig.ssd300(n_classes=4), mode="training", device="cpu")
     with pytest.raises(ValueError, match="inference"):
         SSDPredictor(model)
+
+
+@pytest.mark.parametrize("in_hw, out_hw", [((480, 640), (300, 300)), ((200, 250), (300, 300)),
+                                           ((300, 300), (512, 512)), ((97, 1000), (300, 300)),
+                                           ((301, 299), (150, 600))])
+def test_resize_bilinear_pil_matches_pil(in_hw, out_hw):
+    """PIL's ``Image.BILINEAR`` in NumPy, sizes up and down: within one
+    level and equal on at least 99% of pixels (it is equal on all of them
+    with the Pillow the tests ran against)."""
+    from PIL import Image
+
+    img = np.random.RandomState(7).randint(0, 256, (*in_hw, 3), dtype=np.uint8)
+    expected = np.asarray(Image.fromarray(img).resize(out_hw[::-1], Image.BILINEAR))
+    got = resize_bilinear_pil(img, *out_hw)
+    assert got.shape == expected.shape and got.dtype == np.uint8
+    diff = np.abs(got.astype(int) - expected.astype(int))
+    assert diff.max() <= 1 and (diff == 0).mean() >= 0.99
+
+
+def _gray_and_rgba(rng, hw):
+    gray = rng.randint(0, 256, hw, dtype=np.uint8)
+    rgba = rng.randint(0, 256, (*hw, 4), dtype=np.uint8)
+    return {"gray": gray, "rgba": rgba}
+
+
+def test_predictor_gray_and_rgba_match_jax(shared):
+    """Gray and RGBA frames through the port's predictor (no PIL) against the
+    JAX predictor (PIL) on the CPU: at the model's size with
+    ``resize_on_device=True`` and at 240x320 with ``False`` (both sides then
+    resize with PIL's bilinear filter). At 240x320 with ``True`` the port
+    takes the RGB-converted frame down the device resize, as for an RGB
+    frame; so do a one-channel (H, W, 1) frame, which PIL cannot read, and
+    a gray-alpha (H, W, 2) frame (PIL's ``LA``)."""
+    flax_model, params, _ = shared
+    jax_model = JaxSSDPredictor(flax_model, {"params": params}, batch_size=1)
+    jax_host = JaxSSDPredictor(flax_model, {"params": params}, batch_size=1,
+                               resize_on_device=False)
+    model = _port_model(params)
+    port = SSDPredictor(model, batch_size=1)
+    port_host = SSDPredictor(model, batch_size=1, resize_on_device=False)
+    rng = np.random.RandomState(8)
+    for hw, pair in (((300, 300), (port, jax_model)), ((240, 320), (port_host, jax_host))):
+        for name, frame in _gray_and_rgba(rng, hw).items():
+            got = pair[0].predict([frame])[0]
+            expected = pair[1].predict([frame])[0]
+            assert len(expected) > 0
+            report = _mismatch_report(got, expected, cut=-1.0)
+            assert not report, f"{name} {hw}:\n" + "\n".join(report)
+    frames = _gray_and_rgba(rng, (240, 320))
+    frames["gray_1ch"] = frames["gray"][..., None]
+    frames["gray_alpha"] = np.stack([frames["gray"], frames["rgba"][..., 3]], -1)
+    for name, frame in frames.items():
+        plane = frame if frame.ndim == 2 else frame[..., 0]
+        rgb = frame[..., :3] if name == "rgba" else np.repeat(plane[..., None], 3, -1)
+        np.testing.assert_array_equal(port.predict([frame])[0], port.predict([rgb])[0])

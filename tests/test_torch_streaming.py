@@ -125,3 +125,59 @@ def test_a_mismatched_pipeline_is_rejected(case):
         match = "mesh"
     with pytest.raises(ValueError, match=match):
         StreamingDeviceInput(iter(_host_batches(1)), aug, enc)
+
+
+def _synthvoc_generators():
+    """The JAX package's and the port's in-memory DataGenerators over one
+    SynthVOC split of 10 images at 96x96 (a batch of 4 wraps the epoch)."""
+    from ssd_keras_torch.data import SynthVOC
+    from ssd_keras_torch.data.datasets import DataGenerator
+    from ssd_keras_tpu.data.datasets import DataGenerator as JaxDataGenerator
+
+    images, labels = SynthVOC(10, image_size=96, split="train", seed=4).materialize()
+    gens = []
+    for cls in (JaxDataGenerator, DataGenerator):
+        gen = cls()
+        gen.images = [images[i] for i in range(len(images))]
+        gen.labels = [np.asarray(l) for l in labels]
+        gen.dataset_size = len(images)
+        gen.dataset_indices = np.arange(len(images), dtype=np.int32)
+        gens.append(gen)
+    return gens
+
+
+@pytest.mark.parametrize("shuffle, shard_index, num_shards, seed",
+                         [(False, 0, 1, None), (True, 0, 1, 3), (True, 1, 2, 3), (False, 2, 3, None)])
+def test_host_decode_batches_equal_jax(shuffle, shard_index, num_shards, seed):
+    from ssd_keras_torch.data.streaming import host_decode_batches
+    from ssd_keras_tpu.data.streaming import host_decode_batches as jax_host_decode_batches
+
+    jax_gen, port_gen = _synthvoc_generators()
+    out = []
+    for fn, gen in ((jax_host_decode_batches, jax_gen), (host_decode_batches, port_gen)):
+        np.random.seed(9)
+        stream = fn(gen, 4, 64, 80, MAX_GT, shuffle=shuffle, shard_index=shard_index,
+                    num_shards=num_shards, seed=seed)
+        out.append([next(stream) for _ in range(4)])
+    for (ji, jp, jc), (pi, pp, pc) in zip(*out):
+        assert pi.dtype == np.uint8 and pi.shape[1:] == (64, 80, 3)
+        np.testing.assert_array_equal(pi, ji)
+        np.testing.assert_array_equal(pp, jp)
+        np.testing.assert_array_equal(pc, jc)
+
+
+def test_host_decode_batches_shards_are_disjoint_and_need_a_seed():
+    from ssd_keras_torch.data.streaming import host_decode_batches
+
+    _, gen = _synthvoc_generators()
+    whole = host_decode_batches(gen, 2, 64, 64, MAX_GT, shuffle=True, seed=1)
+    batches = [next(whole)[0] for _ in range(4)]
+    shards = [host_decode_batches(gen, 2, 64, 64, MAX_GT, shuffle=True, shard_index=r,
+                                  num_shards=2, seed=1) for r in range(2)]
+    for r, shard in enumerate(shards):
+        for k in range(2):
+            np.testing.assert_array_equal(next(shard)[0], batches[2 * k + r])
+    with pytest.raises(ValueError, match="needs a seed"):
+        next(host_decode_batches(gen, 2, 64, 64, MAX_GT, shuffle=True, num_shards=2))
+    with pytest.raises(ValueError, match="out of range"):
+        next(host_decode_batches(gen, 2, 64, 64, MAX_GT, shard_index=2, num_shards=2))
