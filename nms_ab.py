@@ -9,8 +9,8 @@ its own ``csrc/`` into its own ``_build/``, and its own ``kernels/nms.py``
 wrapper (bound to that build) is called. At the five shapes of
 ``chip_smoke.py``'s phase 6, after checking that both give the same keep
 mask, in rounds of parent, change, change, parent: the device time per call
-(``chip_smoke.time_device``) and the time of whole calls back to back
-(``chip_smoke.time_cuda``); then each kernel's device time per call
+(``utils.profiling.time_device``) and the time of whole calls back to back
+(``utils.profiling.time_cuda``); then each kernel's device time per call
 (``torch.profiler``) and the host's time to enqueue a call while the card is
 held. Then how this tree's wrapper spends its host time on the sparse
 lanes, step by step. Then SSD300 VOC bf16 serving at batch 8
@@ -33,6 +33,7 @@ from torch.profiler import ProfilerActivity, profile
 import chip_smoke as cs
 from ssd_keras_torch import decoder
 from ssd_keras_torch.kernels import nms as nms_kernel
+from ssd_keras_torch.utils.profiling import summary, time_cuda, time_device
 
 ROUNDS = 3
 ITERS = 50
@@ -151,7 +152,7 @@ def serving_ab(parent, serving, x, card):
             for side, nms in (("parent", parent), ("change", ours), ("change", ours),
                               ("parent", parent)):
                 decoder.greedy_nms_mask_batched = nms
-                runs[side] += cs.time_cuda(lambda: serving(x), iters=SERVING_ITERS, repeats=1,
+                runs[side] += time_cuda(lambda: serving(x), iters=SERVING_ITERS, repeats=1,
                                            warmup=1)
     finally:
         decoder.greedy_nms_mask_batched = ours
@@ -159,7 +160,7 @@ def serving_ab(parent, serving, x, card):
     line = dict(metric="nms_ab_serving", model="SSD300 VOC", dtype="bf16", batch=batch,
                 **{f"{side}_img_per_s": batch * 1e3 / statistics.median(r)
                    for side, r in runs.items()},
-                **{f"{side}_ms": cs.summary(r) for side, r in runs.items()},
+                **{f"{side}_ms": summary(r) for side, r in runs.items()},
                 change_faster_in=sum(c < p for c, p in zip(runs["change"], runs["parent"])),
                 of=len(runs["change"]),
                 change_over_parent_median=statistics.median(
@@ -194,7 +195,7 @@ def main():
         keep = change()
         if not torch.equal(keep, old()):
             raise AssertionError(f"{name}: the parent's keep mask differs from this tree's")
-        timers = {"device": cs.time_device, "call": cs.time_cuda}
+        timers = {"device": time_device, "call": time_cuda}
         runs = {(timer, side): [] for timer in timers for side in ("parent", "change")}
         for _ in range(ROUNDS):
             for side, fn in (("parent", old), ("change", change), ("change", change),
@@ -208,7 +209,7 @@ def main():
             parent_runs, change_runs = runs[timer, "parent"], runs[timer, "change"]
             med = statistics.median(change_runs)
             line[timer] = dict(
-                parent_ms=cs.summary(parent_runs), change_ms=cs.summary(change_runs),
+                parent_ms=summary(parent_runs), change_ms=summary(change_runs),
                 speedup=statistics.median(parent_runs) / med,
                 change_faster_in=sum(c < p for c, p in zip(change_runs, parent_runs)),
                 of=len(change_runs), bound_share_change=cost["bound_ms"] / med)

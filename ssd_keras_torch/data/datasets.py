@@ -9,8 +9,10 @@ transform application (with inverter collection), degenerate-box handling,
 and configurable return tuples.
 
 Vendored from ``ssd_keras_tpu/data/datasets.py`` (NumPy only) for the
-PyTorch port. Three changes: ``h5py`` and ``PIL`` are imported at their first
-use, not with the module, so that the port imports without them; the HDF5
+PyTorch port. Four changes: ``h5py`` and ``PIL`` are imported at their first
+use, not with the module, so that the port imports without them;
+``parse_xml`` reads the XML with the standard library's ``ElementTree``, not
+BeautifulSoup and lxml, which the machines the port is built for lack; the HDF5
 cache resizes with ``data.geometric.resize_image``, not OpenCV; and the
 JAX package's batch decode of JPEG files through its native threaded
 decoder (libjpeg) is left out, because the machines the port is built for
@@ -232,11 +234,12 @@ class DataGenerator:
 
         ``difficult`` objects are kept (unless excluded) and recorded in
         ``eval_neutral`` so the evaluator can skip them without penalty.
+        The XML is read with the standard library's ``ElementTree``: every
+        ``<object>`` in document order, its own ``<name>``, ``<truncated>``,
+        ``<difficult>`` and ``<bndbox>`` (not those of its ``<part>``
+        sub-boxes), as the JAX package reads it with BeautifulSoup.
         """
-        try:
-            from bs4 import BeautifulSoup
-        except ImportError as e:
-            raise DatasetError("BeautifulSoup4 is required for parse_xml.") from e
+        from xml.etree import ElementTree
 
         classes = list(classes)
         self.filenames, self.labels = [], []
@@ -256,11 +259,10 @@ class DataGenerator:
                 self.image_ids.append(image_id)
                 if annotations_dir is None:
                     continue
-                with open(os.path.join(annotations_dir, image_id + ".xml")) as f:
-                    soup = BeautifulSoup(f, "xml")
+                tree = ElementTree.parse(os.path.join(annotations_dir, image_id + ".xml"))
                 boxes, neutral = [], []
-                for obj in soup.find_all("object"):
-                    class_name = obj.find("name", recursive=False).text
+                for obj in tree.getroot().iter("object"):
+                    class_name = obj.find("name").text
                     if class_name not in classes:
                         continue
                     class_id = classes.index(class_name)
@@ -272,14 +274,10 @@ class DataGenerator:
                         continue
                     if exclude_difficult and difficult:
                         continue
-                    bndbox = obj.find("bndbox", recursive=False)
-                    coords = {
-                        "class_id": class_id,
-                        "xmin": int(float(bndbox.xmin.text)),
-                        "ymin": int(float(bndbox.ymin.text)),
-                        "xmax": int(float(bndbox.xmax.text)),
-                        "ymax": int(float(bndbox.ymax.text)),
-                    }
+                    bndbox = obj.find("bndbox")
+                    coords = {"class_id": class_id}
+                    for key in ("xmin", "ymin", "xmax", "ymax"):
+                        coords[key] = int(float(next(bndbox.iter(key)).text))
                     boxes.append([coords[k] for k in self.labels_output_format])
                     neutral.append(bool(difficult))
                 self.labels.append(np.array(boxes).reshape(-1, 5))
@@ -727,7 +725,9 @@ def _call_params(transform):
 
 
 def _tag_text(obj, tag, default):
-    node = obj.find(tag, recursive=False)
+    """The text of ``obj``'s child ``tag`` (an ElementTree element), or
+    ``default`` when it has none."""
+    node = obj.find(tag)
     return node.text if node is not None else default
 
 

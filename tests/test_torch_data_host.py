@@ -315,6 +315,83 @@ def test_parsers_equal_jax(tmp_path):
     assert len(results[0][0][2]) == 4 and sum(len(lab) for lab in results[0][0][2]) > 0
 
 
+_VOC_XML = """<annotation>
+  <folder>VOC2007</folder>
+  <filename>{image_id}.jpg</filename>
+  <size><width>500</width><height>375</height><depth>3</depth></size>
+  <object>
+    <name>person</name>
+    <pose>Left</pose>
+    <truncated>1</truncated>
+    <difficult>0</difficult>
+    <bndbox><xmin>10</xmin><ymin>20.7</ymin><xmax>200</xmax><ymax>300</ymax></bndbox>
+    <part>
+      <name>head</name>
+      <bndbox><xmin>50</xmin><ymin>25</ymin><xmax>90</xmax><ymax>70</ymax></bndbox>
+    </part>
+    <part>
+      <name>hand</name>
+      <bndbox><xmin>12</xmin><ymin>150</ymin><xmax>30</xmax><ymax>170</ymax></bndbox>
+    </part>
+  </object>
+  <object>
+    <name>dog</name>
+    <difficult>1</difficult>
+    <bndbox><xmin>220</xmin><ymin>200</ymin><xmax>330.5</xmax><ymax>370</ymax></bndbox>
+  </object>
+  <object>
+    <name>unicorn</name>
+    <bndbox><xmin>1</xmin><ymin>1</ymin><xmax>5</xmax><ymax>5</ymax></bndbox>
+  </object>
+  <object>
+    <name>car</name>
+    <truncated>0</truncated>
+    <difficult>1</difficult>
+    <bndbox>
+      <xmin> 300 </xmin>
+      <ymin>40</ymin>
+      <xmax>480</xmax>
+      <ymax>140</ymax>
+    </bndbox>
+  </object>
+</annotation>
+"""
+
+
+@pytest.mark.parametrize("options", [
+    {}, {"exclude_truncated": True}, {"exclude_difficult": True},
+    {"include_classes": [7, 15]}])
+def test_parse_xml_with_difficult_truncated_and_parts_equals_jax(tmp_path, options):
+    """The port reads VOC XML with ElementTree, the JAX package with
+    BeautifulSoup: the same filenames, labels, image ids and eval-neutral
+    flags, with ``difficult`` and ``truncated`` objects, ``<part>`` sub-boxes
+    (never read as objects or boxes), an unknown class, fractional and
+    padded coordinates, and an image without objects."""
+    ann_dir, set_dir = tmp_path / "Annotations", tmp_path / "ImageSets"
+    ann_dir.mkdir()
+    set_dir.mkdir()
+    ids = ["000005", "000007"]
+    (ann_dir / "000005.xml").write_text(_VOC_XML.format(image_id="000005"))
+    (ann_dir / "000007.xml").write_text(
+        "<annotation><filename>000007.jpg</filename></annotation>\n")
+    (set_dir / "test.txt").write_text("\n".join(ids) + "\n")
+    results = []
+    for mod in (datasets, jax_datasets):
+        gen = mod.DataGenerator(load_images_into_memory=False)
+        results.append(gen.parse_xml([str(tmp_path / "JPEGImages")], [str(set_dir / "test.txt")],
+                                     [str(ann_dir)], ret=True, **options))
+    (_, files, labels, image_ids, neutral), (_, j_files, j_labels, j_ids, j_neutral) = results
+    assert files == j_files and image_ids == j_ids == ids and neutral == j_neutral
+    assert len(labels) == len(j_labels) == 2
+    for got, want in zip(labels, j_labels):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+    if not options:
+        np.testing.assert_array_equal(labels[0], [[15, 10, 20, 200, 300], [12, 220, 200, 330, 370],
+                                                  [7, 300, 40, 480, 140]])
+        assert neutral[0] == [False, True, True] and neutral[1] == []
+
+
 def test_hdf5_cache_equals_jax(tmp_path):
     voc = synthvoc.SynthVOC(3, image_size=32, split="val", seed=2)
     images, labels = voc.materialize()

@@ -39,8 +39,21 @@ def test_import_needs_neither_jax_nor_the_jax_package():
         "        'ssd_keras_torch.data.validation', 'ssd_keras_torch.data.misc',\n"
         "        'ssd_keras_torch.data.photometric', 'ssd_keras_torch.data.chains',\n"
         "        'ssd_keras_torch.utils.visualization', 'ssd_keras_torch.models.layers',\n"
-        "        'ssd_keras_torch.predictor'} <= set(sys.modules)\n"
-        "bad = {'jax', 'flax', 'ssd_keras_tpu', 'h5py', 'PIL', 'triton', 'cv2', 'bs4'}\n"
+        "        'ssd_keras_torch.predictor', 'ssd_keras_torch.utils.profiling',\n"
+        "        'ssd_keras_torch.examples', 'ssd_keras_torch.examples.common',\n"
+        "        'ssd_keras_torch.examples.ssd300_inference',\n"
+        "        'ssd_keras_torch.examples.ssd512_inference',\n"
+        "        'ssd_keras_torch.examples.ssd300_evaluation',\n"
+        "        'ssd_keras_torch.examples.ssd300_evaluation_coco',\n"
+        "        'ssd_keras_torch.examples.ssd7_training',\n"
+        "        'ssd_keras_torch.examples.ssd300_training',\n"
+        "        'ssd_keras_torch.examples.export_h5',\n"
+        "        'ssd_keras_torch.examples.weight_sampling',\n"
+        "        'ssd_keras_torch.examples.synthetic_smoke_ssd300',\n"
+        "        'ssd_keras_torch.examples.synthvoc_benchmark',\n"
+        "        'ssd_keras_torch.examples.run_workflows_synthvoc'} <= set(sys.modules)\n"
+        "bad = {'jax', 'flax', 'optax', 'orbax', 'ssd_keras_tpu', 'h5py', 'PIL', 'triton',\n"
+        "       'cv2', 'bs4', 'lxml'}\n"
         "bad &= set(sys.modules)\n"
         "from ssd_keras_torch import native\n"
         "assert native.load_library.cache_info().currsize == 0  # nothing built at import\n"
@@ -243,3 +256,28 @@ def test_evaluation_entry_point_without_a_card_raises_and_builds_nothing(name, m
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _EVAL_BUILDERS[name]()
     assert built == [] and not list(tmp_path.iterdir())
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the behaviour without a card")
+@pytest.mark.parametrize("example, argv", [
+    ("ssd300_inference", ["missing.jpg"]),
+    ("ssd512_inference", ["missing.jpg"]),
+    ("ssd300_evaluation", ["--voc_root", "missing"]),
+    ("ssd300_evaluation_coco", ["--images_dir", "missing", "--annotations", "missing.json"]),
+    ("ssd7_training", ["--images_dir", "missing", "--train_labels", "missing.csv"]),
+    ("ssd300_training", ["--voc_root", "missing"]),
+    ("synthetic_smoke_ssd300", []),
+    ("synthvoc_benchmark", ["--out", "missing_out"]),
+    ("run_workflows_synthvoc", ["--root", "missing_root"]),
+])
+def test_examples_default_to_the_card_and_raise_without_one(example, argv, tmp_path,
+                                                           monkeypatch):
+    """Every example runs on ``cuda`` unless given ``--device cpu``, and
+    without a card it raises before it reads or writes anything."""
+    import importlib
+
+    monkeypatch.chdir(tmp_path)
+    module = importlib.import_module(f"ssd_keras_torch.examples.{example}")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        module.main(argv)
+    assert list(tmp_path.iterdir()) == []
