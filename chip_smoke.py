@@ -24,8 +24,21 @@ Phases, in order; the first failure raises and the script exits non-zero:
    bf16 at batch 1. The
    NMS launch count is reset before and read after; it must have moved. The
    path must not make the host wait for the device.
-5. Serving: ``SSDPredictor`` answers 8 frames of 300x300, 5 of 480x640 and
-   1 frame, all uint8.
+5. Serving through ``SSDPredictor``'s per-shape CUDA graphs (the cast,
+   resize, forward, decode and NMS kernel captured once a shape): (a) it
+   answers 8 frames of 300x300, 5 of 480x640 and 1 frame, all uint8, the
+   first of each shape capturing its graph; (b) each answer equals the
+   eager path's (``EagerPredictor``; bit-equal expected, phase 4's
+   SCORE_TOL and BOX_TOL at most); (c) replayed, the requests make no host
+   synchronisation outside the predictor's read and count one NMS launch a
+   replay; (d) with ``max_compiled_shapes=2`` a third shape (360x480)
+   evicts the least recent graph, which is captured again when its shape
+   returns, and a reload of other weights drops the graphs, every answer
+   equal to the eager path's; the memory each graph's pool holds at batch
+   8; (e) graphs against the eager path, interleaved over SERVE_AB_ROUNDS
+   rounds of the 8 x 300x300 and 5 x 480x640 requests: ms a request (host
+   clock) and the card's busy share (``torch.profiler``). A failed capture
+   raises.
 6. Timings (CUDA events after warm-up): SSD300 batch-8 'inference' img/s at
    bf16 and f32; at bf16, serving from the kept bf16 copies of the f32
    weights against casting them at every call and against bf16 parameters,
@@ -106,8 +119,9 @@ Phases, in order; the first failure raises and the script exits non-zero:
    steps at batch 16 on 16 images with the on-device pipeline) must halve
    its loss and recall at least SMOKE_RECALL_MIN of the training boxes at
    IoU 0.5, decoded through the NMS kernel (the JAX script's ``SMOKE PASS``
-   asks for recall > 0.6, which the port does not reach in 400 steps: the
-   line records which it printed); (b) ``run_workflows_synthvoc --scale quick``, each workflow
+   asks for recall > 0.6, which neither the port nor the JAX package
+   reaches in 400 steps at the seeds run: the line records which it
+   printed); (b) ``run_workflows_synthvoc --scale quick``, each workflow
    in its own process: every row ``ok``, except the three h5 rows, which
    read ``not run: no h5py`` where h5py does not import, and the
    evaluation, COCO and inference rows each report NMS launches from their
@@ -115,6 +129,16 @@ Phases, in order; the first failure raises and the script exits non-zero:
    on 1000 images must reach val mAP (sample) >= 0.20. One JSON line a
    part: seconds, img/s where the workflow reports it, the mAP or recall,
    the card.
+
+12. The accuracy A/B workflows, cut to a few minutes: (a)
+   ``bf16_vs_f32_ssd300`` (200 steps at batch 8): both arms finite, their
+   step-0 losses (one init, one batch) within BF16_STEP0_RTOL; (b)
+   ``aug_chain_ab`` (40 steps at batch 8 on 64 images): the host chain's and
+   the device chain's arms from the same init, each with a val mAP; (c)
+   ``evaluator_decode_agreement`` on 96 crowded images with an SSD300 that
+   ``synthvoc_benchmark``'s recipe trains for 1000 steps here: the device
+   decode (the NMS kernel) against the host decoder within the JAX script's
+   rule (``AGREEMENT OK``). The full-size runs go outside this script.
 
 It prints JSON lines (timings, then the kernels line), then as its last line
 ``{"ok": true, "device": {...}}``. With no CUDA device it raises before
@@ -205,6 +229,9 @@ STEP_PARAM_TOL = 1e-2  # of the step's largest update
 RESTORE_TOL = 1e-6
 # Interleaved rounds of the bf16 weight-cast A/B (phase 6).
 CAST_AB_ROUNDS = 20
+# Interleaved rounds of the predictor's graphs against its eager path
+# (phase 5), each timing both requests on both sides.
+SERVE_AB_ROUNDS = 20
 # Phase 3: (lanes, K, kind of lanes, border_delta); the kinds are
 # random_lanes'. The cases in NMS_ONES_CASES run again from a scratch of
 # all ones.
@@ -283,10 +310,33 @@ STREAM_BATCHES = 4
 BENCH_ARGS = ["--model", "ssd7", "--steps", "2000", "--eval-every", "2000",
               "--train-images", "1000", "--val-images", "200"]
 BENCH_MAP_MIN = 0.20
-# (a): the smoke's recall@0.5 on its 16 training images after 400 steps read
-# 0.21, 0.44 and 0.41 at seeds 0, 1 and 2 on the card (the same each run);
-# a broken encode, loss, decode or NMS kernel finds no box.
+# (a): the smoke's recall@0.5 on its 16 training images after 400 steps.
+# Neither package reaches the JAX script's recall > 0.6 at the seeds run:
+# the port reads 0.21 (7 of 34 boxes, the same in every card run), 0.44,
+# 0.41, 0.49, 0.44, 0.31, 0.54 and 0.54 at seeds 0-7 on the card; the JAX
+# package at the code that stands read 0.53, 0.53 and 0.19 (6 of 32) at
+# seeds 0-2 on the CPU. The gate sits under the lowest of both: a broken
+# encode, loss, decode or NMS kernel finds no box.
 SMOKE_RECALL_MIN = 0.15
+# Phase 12: the A/B workflows cut to keep the script in its time limit.
+# (a) 200 steps at batch 8 on 256 images (the JAX run: 2000 at 32 on 2000).
+BF16_AB_ARGS = ["--steps", "200", "--batch", "8", "--train-images", "256",
+                "--val-images", "64", "--warmup", "50"]
+# Step 0, the same init and batch in both arms: bf16 rounds each activation
+# to 8 significant bits (~0.4%), and the loss averages those errors over
+# ~100 matched and mined boxes. The JAX record's step-0 pair differs by
+# 6e-5 of the loss; a wrong cast or a different batch errs by far more.
+BF16_STEP0_RTOL = 0.01
+# (b) 40 steps at batch 8 on 64 / 32 images: the host chain runs at
+# ~17 img/s on the card's machine (phase 10).
+AUG_AB_ARGS = ["--steps", "40", "--batch", "8", "--train-images", "64", "--val-images", "32",
+               "--eval-every", "40", "--warmup", "10"]
+# (c) SSD300 trained by the SynthVOC recipe for 1000 steps on 1000 images,
+# then the agreement on 96 crowded images (the JAX run: 24000 steps, 320
+# images).
+AGREEMENT_TRAIN_ARGS = ["--model", "ssd300", "--steps", "1000", "--train-images", "1000",
+                        "--val-images", "64", "--eval-every", "1000", "--warmup", "200"]
+AGREEMENT_ARGS = ["--images", "96", "--batch", "32"]
 # The driver's rows that need h5py, and the rows that decode (each must
 # launch the NMS kernel in its own process).
 H5_ROWS = {"h5_export", "weight_sampling", "sampled_weights_load"}
@@ -320,7 +370,7 @@ def model_for(state, mode, dtype, device, arch="ssd300", config=None):
     return model
 
 
-def seeded_state(arch="ssd300", config=None):
+def seeded_state(arch="ssd300", config=None, seed=SEED):
     """Weights from a seeded generator, scaled into a trained detector's
     output range. He init carries the raw 0-255 input's magnitude (~75 RMS)
     through the trunk, which saturates the softmax at exactly 1.0 and
@@ -329,7 +379,7 @@ def seeded_state(arch="ssd300", config=None):
     decoded box stays near its anchor, as a trained model's do."""
     build_model, default_config = BUILDERS[arch]
     model, _ = build_model(config or default_config(),
-                           generator=torch.Generator().manual_seed(SEED), device="cpu")
+                           generator=torch.Generator().manual_seed(seed), device="cpu")
     with torch.no_grad():
         model.conv1_1.weight.mul_(0.01)
         for name, module in model.named_children():
@@ -565,6 +615,192 @@ def check_in_frame(name, dets, height, width, n_classes):
           & (x2 > x1) & (y2 > y1) & (x2 > 0) & (y2 > 0) & (x1 < width) & (y1 < height))
     if not ok.all():
         raise AssertionError(f"{name}: rows out of frame: {dets[~ok][:3].tolist()}")
+
+
+class EagerPredictor(SSDPredictor):
+    """The predictor without its per-shape CUDA graphs: every chunk is
+    uploaded and run op by op (``SSDPredictor._eager``). The uncached side
+    of phase 5's comparisons."""
+
+    def _fused_run(self, ih, iw, dtype):
+        return self._eager
+
+
+@contextlib.contextmanager
+def sync_checked_outside_the_predictor_read():
+    """torch.cuda sync debug mode 'error', except while the predictor reads a
+    chunk's detections back (the one wait it is meant to make)."""
+    read = SSDPredictor._read
+
+    def waited(out):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return read(out)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    SSDPredictor._read = staticmethod(waited)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        SSDPredictor._read = staticmethod(read)
+
+
+def serving_requests(seed, shapes):
+    """uint8 requests: ``shapes`` is a list of (name, count, (h, w))."""
+    rng = np.random.RandomState(seed)
+    return [(name, [rng.randint(0, 256, (*hw, 3), dtype=np.uint8) for _ in range(n)])
+            for name, n, hw in shapes]
+
+
+def same_answers(name, got, expected):
+    """Two predictors' answers to one request: the same rows (bit-equal
+    expected; within phase 4's SCORE_TOL and BOX_TOL at most). Returns the
+    largest |diff|."""
+    worst = 0.0
+    for i, (g, e) in enumerate(zip(got, expected)):
+        if g.shape != e.shape:
+            raise AssertionError(f"{name}: image {i}: {g.shape} rows against {e.shape}")
+        if len(g):
+            diff = np.abs(g - e)
+            if diff[:, 0].max() > 0 or diff[:, 1].max() > SCORE_TOL or diff[:, 2:].max() > BOX_TOL:
+                raise AssertionError(f"{name}: image {i}: max |diff| by column "
+                                     f"{diff.max(0).tolist()}")
+            worst = max(worst, float(diff.max()))
+    return worst
+
+
+def graph_pool_bytes(graph):
+    """Bytes of the segments in ``graph``'s private memory pool, from the
+    allocator's snapshot; "not measured" where the snapshot has no pool ids."""
+    pool = tuple(graph.pool())
+    segments = torch.cuda.memory_snapshot()
+    if not segments or "segment_pool_id" not in segments[0]:
+        return "not measured"
+    return sum(seg["total_size"] for seg in segments if tuple(seg["segment_pool_id"]) == pool)
+
+
+def serving_phase(bf16, state, device, card):
+    """Phase 5: ``SSDPredictor`` through its per-shape CUDA graphs. Returns
+    (JSON lines, NMS launches of the first requests, launches by part)."""
+    predictor = SSDPredictor(bf16, batch_size=BATCH)
+    requests = serving_requests(SEED + 2, [("8 x 300x300", 8, (300, 300)),
+                                           ("5 x 480x640", 5, (480, 640)),
+                                           ("1 x 300x300", 1, (300, 300))])
+    # (a) The requests, the first of each shape capturing its graph.
+    nms_kernel.launches = 0
+    answers = []
+    for name, images in requests:
+        new_shape = (*images[0].shape[:2], "|u1") not in predictor._compiled
+        t0 = time.perf_counter()
+        out = predictor.predict(images)
+        ms = 1e3 * (time.perf_counter() - t0)
+        if len(out) != len(images):
+            raise AssertionError(f"request {name}: {len(out)} answers")
+        for img, dets in zip(images, out):
+            if dets.ndim != 2 or dets.shape[1] != 6 or len(dets) == 0:
+                raise AssertionError(f"request {name}: detections of shape {dets.shape}")
+            check_in_frame(f"request {name}", dets, img.shape[0], img.shape[1], 20)
+        answers.append(out)
+        log(f"request {name}: answered in {ms:.1f} ms (host clock, "
+            f"{'capturing its shape' if new_shape else 'replayed'}), "
+            f"{sum(len(d) for d in out)} detections")
+    serve_launches = nms_kernel.launches
+    if serve_launches < len(requests):
+        raise AssertionError(f"serving launched the NMS kernel {serve_launches} times")
+    if list(predictor._compiled) != [(480, 640, "|u1"), (300, 300, "|u1")]:
+        raise AssertionError(f"graph cache holds {list(predictor._compiled)}")
+
+    # (b) Each answer equals the eager path's.
+    eager = EagerPredictor(bf16, batch_size=BATCH)
+    worst = max(same_answers(f"request {name}, graph vs eager", out, eager.predict(images))
+                for (name, images), out in zip(requests, answers))
+    log(f"graph-cached answers vs eager: max |diff| {worst:.3g} (bit-equal expected)")
+
+    # (c) Replays: NMS launches counted, no host sync outside the read.
+    launches = {}
+    nms_kernel.launches = 0
+    with sync_checked_outside_the_predictor_read():
+        for (name, images), out in zip(requests, answers):
+            same_answers(f"request {name}, replayed", predictor.predict(images), out)
+    launches["serving_graph_replays"] = nms_kernel.launches
+    if nms_kernel.launches != len(requests):
+        raise AssertionError(f"{len(requests)} replays counted {nms_kernel.launches} NMS launches")
+    log("graph replays: no host synchronisation outside the predictor's read "
+        "(torch.cuda sync debug mode 'error'); one NMS launch counted a replay")
+
+    # (d) Two shapes at most: a third evicts the least recent, which is made
+    # again when it comes back; then other weights are loaded.
+    model = model_for(state, "inference", torch.bfloat16, device)
+    small = SSDPredictor(model, batch_size=BATCH, max_compiled_shapes=2)
+    reference = EagerPredictor(model, batch_size=BATCH)
+    third = serving_requests(SEED + 3, [("2 x 360x480", 2, (360, 480))])[0]
+    nms_kernel.launches = 0
+    for name, images in [requests[0], requests[1], third, requests[0]]:
+        same_answers(f"request {name}, two graphs at most", small.predict(images),
+                     reference.predict(images))
+    if list(small._compiled) != [(360, 480, "|u1"), (300, 300, "|u1")]:
+        raise AssertionError(f"LRU cache holds {list(small._compiled)}")
+    before = small.predict(third[1])
+    model.load_state_dict(seeded_state(seed=SEED + 3))
+    after = small.predict(third[1])
+    same_answers("after a reload", after, reference.predict(third[1]))
+    if all(np.array_equal(a, b) for a, b in zip(after, before)):
+        raise AssertionError("the reloaded weights gave the old answers")
+    launches["serving_graph_evict_reload"] = nms_kernel.launches
+    log("max_compiled_shapes=2: a third shape evicted the least recent graph, its return "
+        "captured it again, and a reload of other weights dropped the graphs; answers equal "
+        "the eager path's")
+
+    # Memory: each graph's private pool at batch 8, two shapes.
+    pools = {}
+    graphs = SSDPredictor(bf16, batch_size=BATCH)
+    for hw in ((300, 300), (480, 640)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        graph = graphs._fused_run(*hw, np.uint8)
+        torch.cuda.synchronize()
+        pools["x".join(map(str, hw))] = dict(
+            reserved_delta_bytes=torch.cuda.memory_reserved() - reserved,
+            pool_bytes=graph_pool_bytes(graph.graph))
+    largest = max(p["reserved_delta_bytes"] for p in pools.values())
+    lines = [dict(metric="ssd300_serving_graph_memory", batch=BATCH, dtype="bf16",
+                  per_shape=pools, graphs_16_bytes_at_largest=16 * largest,
+                  note="reserved_delta includes the static input and the warm-up's NMS "
+                       "scratch for the capture stream", card=card)]
+    del graphs
+
+    # (e) Cached against eager predict, interleaved.
+    ab = [requests[0], requests[1]]
+    variants = {"graphs": predictor, "eager": eager}
+    runs = {(v, name): [] for v in variants for name, _ in ab}
+    for r in range(SERVE_AB_ROUNDS):
+        order = list(variants) if r % 2 == 0 else list(variants)[::-1]
+        for v in order:
+            for name, images in ab:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                variants[v].predict(images)
+                runs[v, name].append(1e3 * (time.perf_counter() - t0))
+    busy = {}
+    for v, p in variants.items():
+        wall, share = busy_share(lambda: [p.predict(images) for _, images in ab])
+        busy[v] = dict(wall_ms=1e3 * wall, busy_share=share)
+    faster = {name: sum(g < e for g, e in zip(runs["graphs", name], runs["eager", name]))
+              for name, _ in ab}
+    lines.append(dict(metric="ssd300_serving_graph_ab_ms", rounds=SERVE_AB_ROUNDS, dtype="bf16",
+                      batch=BATCH, **{f"{v}_{name.replace(' ', '')}": summary(t)
+                                      for (v, name), t in runs.items()},
+                      graphs_faster_in=faster, timer="host clock", card=card))
+    lines.append(dict(metric="ssd300_serving_graph_ab_busy_share", requests=[n for n, _ in ab],
+                      **busy, timer="torch.profiler over one pass of both requests", card=card))
+    for line in lines:
+        log(f"{line['metric']}: {json.dumps({k: v for k, v in line.items() if k != 'metric'})}")
+    return lines, serve_launches, launches
 
 
 def cast_ab(state, bf16, x, card):
@@ -1614,6 +1850,76 @@ def workflows_phase(card):
     return lines, launches
 
 
+def ab_workflows_phase(card):
+    """Phase 12, the three accuracy A/B workflows at a cut size. Returns
+    (JSON lines, NMS launches by part)."""
+    from ssd_keras_torch.examples import (aug_chain_ab, bf16_vs_f32_ssd300,
+                                          evaluator_decode_agreement, synthvoc_benchmark)
+
+    lines, launches = [], {}
+    with tempfile.TemporaryDirectory() as tmp, torch.enable_grad():
+        # (a) bf16 against f32 from one init on one batch sequence.
+        nms_kernel.launches = 0
+        t0 = time.perf_counter()
+        bf = bf16_vs_f32_ssd300.main(BF16_AB_ARGS + ["--out", os.path.join(tmp, "bf16.md")])
+        torch.cuda.synchronize()
+        launches["workflow_bf16_vs_f32"] = nms_kernel.launches
+        rec, paired = bf["record"], bf["paired"]
+        step0 = paired[0]
+        losses = [v for row in paired for v in row[1:3]]
+        lines.append(dict(metric="workflow_bf16_vs_f32_ssd300", args=BF16_AB_ARGS, record=rec,
+                          step0_loss=step0[1:3], step0_rtol=BF16_STEP0_RTOL,
+                          seconds=time.perf_counter() - t0, timer="host clock", card=card))
+        if not (np.isfinite(losses).all() and abs(step0[3]) <= BF16_STEP0_RTOL * abs(step0[2])
+                and launches["workflow_bf16_vs_f32"]):
+            raise AssertionError(f"bf16_vs_f32_ssd300: step 0 {step0}, record {rec}, "
+                                 f"{launches['workflow_bf16_vs_f32']} NMS launches")
+
+        # (b) The host chain against the device chain, from one init.
+        nms_kernel.launches = 0
+        t0 = time.perf_counter()
+        ab = aug_chain_ab.main(AUG_AB_ARGS + ["--out", os.path.join(tmp, "aug")])
+        torch.cuda.synchronize()
+        launches["workflow_aug_chain_ab"] = nms_kernel.launches
+        arms = {r["arm"]: r for r in ab["results"]}
+        lines.append(dict(metric="workflow_aug_chain_ab", args=AUG_AB_ARGS,
+                          **{f"{arm}_map": [r["final_mAP_sample"], r["final_mAP_integrate"]]
+                             for arm, r in arms.items()},
+                          train_seconds={arm: r["train_seconds"] for arm, r in arms.items()},
+                          delta=ab["delta"], seconds=time.perf_counter() - t0,
+                          timer="host clock", card=card))
+        maps = [v for r in arms.values() for v in (r["final_mAP_sample"], r["final_mAP_integrate"])]
+        if not (set(arms) == {"device", "host"}
+                and arms["device"]["init_checksum"] == arms["host"]["init_checksum"]
+                and all(0.0 <= m <= 1.0 for m in maps) and launches["workflow_aug_chain_ab"]):
+            raise AssertionError(f"aug_chain_ab: {ab}, "
+                                 f"{launches['workflow_aug_chain_ab']} NMS launches")
+
+        # (c) Device decode against host decode on crowded scenes, with an
+        # SSD300 the SynthVOC recipe trained here.
+        t0 = time.perf_counter()
+        ckpt = os.path.join(tmp, "ckpt300")
+        trained = synthvoc_benchmark.main(AGREEMENT_TRAIN_ARGS + [
+            "--out", os.path.join(tmp, "bench300"), "--ckpt", ckpt])
+        train_s = time.perf_counter() - t0
+        nms_kernel.launches = 0
+        agree = evaluator_decode_agreement.main(AGREEMENT_ARGS + [
+            "--ckpt", ckpt, "--out", os.path.join(tmp, "agreement.md")])
+        torch.cuda.synchronize()
+        launches["workflow_decode_agreement"] = nms_kernel.launches
+        lines.append(dict(metric="workflow_evaluator_decode_agreement", args=AGREEMENT_ARGS,
+                          trained=dict(args=AGREEMENT_TRAIN_ARGS, map_sample=trained["map_sample"],
+                                       seconds=train_s),
+                          record=agree["record"], ok=agree["ok"],
+                          seconds=time.perf_counter() - t0, timer="host clock", card=card))
+        if not (agree["ok"] and launches["workflow_decode_agreement"]):
+            raise AssertionError(f"evaluator_decode_agreement: {agree['record']}, "
+                                 f"{launches['workflow_decode_agreement']} NMS launches")
+    for line in lines:
+        log(f"{line['metric']}: {json.dumps({k: v for k, v in line.items() if k != 'metric'})}")
+    return lines, launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; the port's main path runs on one")
@@ -1700,33 +2006,11 @@ def main():
     compare_detections("inference_fast f32, card vs CPU", det_fast.cpu().numpy(),
                        cpu_fast.numpy(), SCORE_TOL, BOX_TOL)
 
-    # 5. Serving.
-    predictor = SSDPredictor(bf16, batch_size=BATCH)
-    srng = np.random.RandomState(SEED + 2)
-    requests = [
-        ("8 x 300x300", [srng.randint(0, 256, (300, 300, 3), dtype=np.uint8) for _ in range(8)]),
-        ("5 x 480x640", [srng.randint(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(5)]),
-        ("1 x 300x300", [srng.randint(0, 256, (300, 300, 3), dtype=np.uint8)]),
-    ]
-    nms_kernel.launches = 0
-    for name, images in requests:
-        t0 = time.perf_counter()
-        out = predictor.predict(images)
-        ms = 1e3 * (time.perf_counter() - t0)
-        if len(out) != len(images):
-            raise AssertionError(f"request {name}: {len(out)} answers")
-        for img, dets in zip(images, out):
-            if dets.ndim != 2 or dets.shape[1] != 6 or len(dets) == 0:
-                raise AssertionError(f"request {name}: detections of shape {dets.shape}")
-            check_in_frame(f"request {name}", dets, img.shape[0], img.shape[1], 20)
-        log(f"request {name}: answered in {ms:.1f} ms (host clock, first call), "
-            f"{sum(len(d) for d in out)} detections")
-    serve_launches = nms_kernel.launches
-    if serve_launches < len(requests):
-        raise AssertionError(f"serving launched the NMS kernel {serve_launches} times")
+    # 5. Serving, through the predictor's per-shape CUDA graphs.
+    serve_lines, serve_launches, graph_launches = serving_phase(bf16, state, device, card)
 
     # 6. Timings.
-    lines = []
+    lines = list(serve_lines)
     for dtype_name, model in (("bf16", bf16), ("f32", f32)):
         ms = summary(time_cuda(lambda: model(x), iters=20))
         lines.append(dict(
@@ -1763,6 +2047,10 @@ def main():
     workflow_lines, workflow_launches = workflows_phase(card)
     lines += workflow_lines
 
+    # 12. The accuracy A/B workflows at a cut size.
+    ab_lines, ab_launches = ab_workflows_phase(card)
+    lines += ab_lines
+
     for line in lines:
         print(json.dumps(line), flush=True)
 
@@ -1774,8 +2062,9 @@ def main():
         bound_by=nms_main["bound_by"], library_ms=None, library_note=NMS_LIBRARY_NOTE,
         shape="main_path", passes=2,
         launches_by_path=dict(serving=main_launches, serving_requests=serve_launches,
+                              **graph_launches,
                               **dp_launches, **eval_launches, host_chain=host_launches,
-                              **workflow_launches),
+                              **workflow_launches, **ab_launches),
     )]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,11 @@ flags and the lines their drivers parse:
   ``weight_sampling`` (a ``.h5``'s class heads to another class count);
 * ``synthetic_smoke_ssd300`` (an overfit smoke), ``synthvoc_benchmark``
   (train to a validation-mAP curve on SynthVOC) and
-  ``run_workflows_synthvoc`` (every workflow above on a SynthVOC export).
+  ``run_workflows_synthvoc`` (every workflow above on a SynthVOC export);
+* the accuracy A/Bs: ``aug_chain_ab`` (the host augmentation chain against
+  the device chain, by mAP), ``bf16_vs_f32_ssd300`` (bf16 against f32
+  training from one init) and ``evaluator_decode_agreement`` (the device
+  decode against the host decoder on crowded scenes).
 
 Each runs on the card (``--device cuda``, the default) unless given
 ``--device cpu``; without a card, the default raises. Weights come from a

@@ -3,8 +3,11 @@
 Port of the JAX package's ``examples/synthetic_smoke_ssd300.py``: coloured
 rectangles -> ``DeviceSSDAugmentation`` -> on-device encoding -> bf16 SSD300
 train steps -> decode on the device (the NMS kernel on the card) ->
-recall@0.5 on the training images. A healthy run halves its loss and
-recalls most boxes within a few hundred steps, and prints ``SMOKE PASS``.
+recall@0.5 on the training images. It prints ``SMOKE PASS`` when the loss
+halves and the recall passes 0.6, the JAX script's criterion, kept as it
+is. At 400 steps neither package reaches that recall at the seeds measured
+(the port 0.21-0.54 at seeds 0-7 on an H100, the JAX package 0.19-0.53 at
+seeds 0-2 on the CPU), so a run prints ``SMOKE WEAK`` with a halved loss.
 
 Usage:  python -m ssd_keras_torch.examples.synthetic_smoke_ssd300 [--steps 400] [--images 16]
 """

@@ -23,6 +23,12 @@ call does little on the host besides its two launches: it allocates only
 ``keep``; pass A's scratch is kept per (device, stream) and grown to the
 largest call seen (3.6 MB at L = 160, K = 400; 57 MB at L = 2560), and
 the device is switched only when it is not the current one.
+
+Under CUDA-graph capture (the predictor's per-shape graphs) a call launches
+nothing: it records its two kernels into the graph, counts in ``captured``
+and not in ``launches``, and takes a scratch of its own from the graph's
+private pool, which no eager call reuses. Whoever replays the graph counts
+its calls with ``replayed``.
 """
 
 from __future__ import annotations
@@ -32,11 +38,14 @@ import torch
 from ssd_keras_torch.kernels.build import load_library
 from ssd_keras_torch.ops.nms import greedy_nms_mask, mask_words
 
-__all__ = ["greedy_nms_mask_batched", "iou_mask", "launches"]
+__all__ = ["captured", "greedy_nms_mask_batched", "iou_mask", "launches", "replayed"]
 
 # Incremented once per call that launches the kernel (never for the CPU
-# path): a run can show that its NMS went through the kernel.
+# path), and by ``replayed`` for each call a replayed CUDA graph holds: a
+# run can show that its NMS went through the kernel.
 launches = 0
+# Calls recorded into CUDA graphs under capture (they launch at replay).
+captured = 0
 
 # Pass B keeps each lane's removed bitmap, ceil(K / 64) words, in static
 # shared memory sized for 160 words (csrc/nms.cu:kMaxWords).
@@ -103,6 +112,20 @@ def _scratch(index: int, stream: int, words: int) -> torch.Tensor:
     return scratch
 
 
+def _graph_scratch(device: torch.device, words: int) -> torch.Tensor:
+    """Scratch for a call under CUDA-graph capture: allocated from the
+    graph's private pool, so it belongs to that graph alone (an eager call
+    on the capture stream keeps using ``_scratches``)."""
+    return torch.empty(words, dtype=torch.int64, device=device)
+
+
+def replayed(calls: int) -> None:
+    """Count ``calls`` launches of the kernel: a CUDA graph holding that many
+    calls of the wrapper was replayed."""
+    global launches
+    launches += calls
+
+
 def greedy_nms_mask_batched(
     boxes: torch.Tensor,
     valid: torch.Tensor,
@@ -112,8 +135,8 @@ def greedy_nms_mask_batched(
     """(L, K) bool keep mask for (L, K, 4) f32 corners sorted by score
     descending per lane and an (L, K) bool ``valid`` mask. On the card one
     call is two kernel launches (pass A, pass B) and counts once in
-    ``launches``."""
-    global launches
+    ``launches`` (in ``captured`` under CUDA-graph capture)."""
+    global launches, captured
     _check(boxes, valid)
     if boxes.device.type == "cpu":
         return greedy_nms_mask(boxes, valid, iou_threshold, border_delta)
@@ -125,11 +148,19 @@ def greedy_nms_mask_batched(
         return keep
     index = boxes.device.index
     stream = _stream(index)
-    mask = _scratch(index, stream, lanes * k * mask_words(k))
+    words = lanes * k * mask_words(k)
+    capturing = torch.cuda.is_current_stream_capturing()
+    if capturing:
+        mask = _graph_scratch(boxes.device, words)
+    else:
+        mask = _scratch(index, stream, words)
     _launch("ssd_greedy_nms", index, stream, boxes.data_ptr(), valid.data_ptr(),
             keep.data_ptr(), mask.data_ptr(), lanes, k, float(iou_threshold),
             float(border_delta))
-    launches += 1
+    if capturing:
+        captured += 1
+    else:
+        launches += 1
     return keep
 
 

@@ -6,7 +6,9 @@ scratch kept per stream), the training slice
 a one-rank NCCL step against the plain step, the dry run on two gloo ranks
 sharing the card), and the evaluation path (SSD512 against the CPU, the
 evaluator on the card against the CPU, the COCO tools' lanes, the host C++
-built with g++), the predictor on gray and RGBA frames (no PIL), and the
+built with g++), the predictor on gray and RGBA frames (no PIL) and through
+its per-shape CUDA graphs (equal to the eager path, NMS launches counted on
+replay, dropped on a weight reload, a scratch of each graph's own), and the
 host-chain Trainer.
 
 Every test here is marked ``cuda`` and skips without a card. The file
@@ -23,7 +25,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from chip_smoke import StreamModel, noisy_oracle, random_lanes, seeded_state
+from chip_smoke import EagerPredictor, StreamModel, noisy_oracle, random_lanes, seeded_state
 from ssd_keras_torch import SSDConfig, SSDInputEncoder, SSDLoss, SSDPredictor, ssd_7, ssd_300
 from ssd_keras_torch import train as T
 from ssd_keras_torch.data import SynthVOC
@@ -36,6 +38,7 @@ from ssd_keras_torch.models import ssd7_predictor_sizes, ssd300_predictor_sizes
 from ssd_keras_torch.ops.nms import greedy_nms_mask, iou_suppression_mask, words_read
 from ssd_keras_torch.parallel import sharding as sh
 from ssd_keras_torch.parallel.dryrun import dryrun_multichip
+from ssd_keras_torch.predictor import WARMUP_CALLS, _ShapeGraph
 
 torch.set_num_threads(2)
 
@@ -159,19 +162,111 @@ def test_decoder_on_card_equals_cpu(cuda, n_classes, fast):
     torch.testing.assert_close(got[..., 2:], expected[..., 2:], rtol=0, atol=1e-3)
 
 
-def test_predictor_serves_on_card(cuda):
+def _served_model(cuda, seed=0):
+    """SSD300 VOC 'inference' in bf16 from a seeded init, conv1_1 x 1/100."""
     model, _ = ssd_300(SSDConfig.ssd300(), mode="inference", compute_dtype=torch.bfloat16,
-                       device=cuda, generator=torch.Generator().manual_seed(0))
+                       device=cuda, generator=torch.Generator().manual_seed(seed))
     with torch.no_grad():
         model.conv1_1.weight.mul_(0.01)
+    return model
+
+
+def test_predictor_serves_on_card(cuda):
+    model = _served_model(cuda)
     frames = [np.random.RandomState(i).randint(0, 256, (480, 640, 3), dtype=np.uint8)
               for i in range(3)]
     before = nms_kernel.launches
     out = SSDPredictor(model, batch_size=2).predict(frames)
-    assert nms_kernel.launches == before + 2  # two chunks, one launch each
+    # Two chunks, one launch each, after the eager warm-up before the capture.
+    assert nms_kernel.launches == before + WARMUP_CALLS + 2
     assert len(out) == 3
     for dets in out:
         assert dets.shape[1] == 6 and len(dets) > 0 and np.isfinite(dets).all()
+
+
+def _frames(seed):
+    rng = np.random.RandomState(seed)
+    return ([rng.randint(0, 256, (300, 300, 3), dtype=np.uint8) for _ in range(3)]
+            + [rng.randint(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(3)])
+
+
+def test_graph_cache_equals_eager_on_card(cuda):
+    """Two shapes, two chunks each (one padded), through the CUDA graphs and
+    through the eager path: the same detections bit for bit (the same
+    kernels on the same inputs, replayed)."""
+    model = _served_model(cuda)
+    cached = SSDPredictor(model, batch_size=2)
+    frames = _frames(1)
+    for _ in range(2):  # the capture's call, then replays only
+        got = cached.predict(frames)
+        for dets, ref in zip(got, EagerPredictor(model, batch_size=2).predict(frames)):
+            assert len(dets) > 0
+            np.testing.assert_array_equal(dets, ref)
+    assert list(cached._compiled) == [(300, 300, "|u1"), (480, 640, "|u1")]
+    assert all(isinstance(run, _ShapeGraph) for run in cached._compiled.values())
+
+
+def test_graph_replays_count_nms_launches(cuda):
+    """A capture records the NMS wrapper's call without counting a launch;
+    each replay counts the calls its graph holds."""
+    model = _served_model(cuda)
+    predictor = SSDPredictor(model, batch_size=2)
+    frames = _frames(2)
+    before, captured = nms_kernel.launches, nms_kernel.captured
+    predictor.predict(frames)
+    assert nms_kernel.captured == captured + 2  # one call in each shape's graph
+    assert nms_kernel.launches == before + 2 * WARMUP_CALLS + 4
+    assert [run.nms_calls for run in predictor._compiled.values()] == [1, 1]
+    before = nms_kernel.launches
+    predictor.predict(frames)
+    assert nms_kernel.launches == before + 4 and nms_kernel.captured == captured + 2
+
+
+def test_graph_reload_after_serving(cuda):
+    """Serve, load other weights, serve again: the graphs made with the old
+    weights (and their bf16 copies) are dropped, and the answer equals an
+    eager predictor's on the new weights."""
+    model = _served_model(cuda)
+    predictor = SSDPredictor(model, batch_size=2)
+    frames = _frames(3)
+    old = predictor.predict(frames)
+    graphs = list(predictor._compiled.values())
+    model.load_state_dict(_served_model(cuda, seed=1).state_dict())
+    new = predictor.predict(frames)
+    assert not any(run is graphs[i] for i, run in enumerate(predictor._compiled.values()))
+    for dets, ref, before in zip(new, EagerPredictor(model, batch_size=2).predict(frames), old):
+        np.testing.assert_array_equal(dets, ref)
+        assert not np.array_equal(dets, before)
+
+
+def test_each_graph_has_its_own_nms_scratch(cuda, monkeypatch):
+    """A call under capture takes its scratch from the graph's own pool:
+    one per graph, none of them a scratch an eager call keeps per stream.
+    Eager calls on the capture stream between replays leave the graphs'
+    answers as they were."""
+    taken = []
+    graph_scratch = nms_kernel._graph_scratch
+
+    def spy(device, words):
+        scratch = graph_scratch(device, words)
+        taken.append(scratch.data_ptr())
+        return scratch
+
+    monkeypatch.setattr(nms_kernel, "_graph_scratch", spy)
+    model = _served_model(cuda)
+    predictor = SSDPredictor(model, batch_size=2)
+    frames = _frames(4)
+    first = predictor.predict(frames)
+    assert len(taken) == 2 and taken[0] != taken[1]
+    eager_ptrs = {t.data_ptr() for t in nms_kernel._scratches.values()}
+    assert not eager_ptrs & set(taken)
+    stream = predictor._capture_stream()
+    stream.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(stream):
+        EagerPredictor(model, batch_size=2).predict(frames)
+    torch.cuda.current_stream(cuda).wait_stream(stream)
+    for dets, ref in zip(predictor.predict(frames), first):
+        np.testing.assert_array_equal(dets, ref)
 
 
 def test_predictor_takes_gray_and_rgba_frames_on_card(cuda):

@@ -51,7 +51,10 @@ def test_import_needs_neither_jax_nor_the_jax_package():
         "        'ssd_keras_torch.examples.weight_sampling',\n"
         "        'ssd_keras_torch.examples.synthetic_smoke_ssd300',\n"
         "        'ssd_keras_torch.examples.synthvoc_benchmark',\n"
-        "        'ssd_keras_torch.examples.run_workflows_synthvoc'} <= set(sys.modules)\n"
+        "        'ssd_keras_torch.examples.run_workflows_synthvoc',\n"
+        "        'ssd_keras_torch.examples.aug_chain_ab',\n"
+        "        'ssd_keras_torch.examples.bf16_vs_f32_ssd300',\n"
+        "        'ssd_keras_torch.examples.evaluator_decode_agreement'} <= set(sys.modules)\n"
         "bad = {'jax', 'flax', 'optax', 'orbax', 'ssd_keras_tpu', 'h5py', 'PIL', 'triton',\n"
         "       'cv2', 'bs4', 'lxml'}\n"
         "bad &= set(sys.modules)\n"
@@ -269,6 +272,9 @@ def test_evaluation_entry_point_without_a_card_raises_and_builds_nothing(name, m
     ("synthetic_smoke_ssd300", []),
     ("synthvoc_benchmark", ["--out", "missing_out"]),
     ("run_workflows_synthvoc", ["--root", "missing_root"]),
+    ("aug_chain_ab", ["--out", "missing_out"]),
+    ("bf16_vs_f32_ssd300", ["--out", "missing.md"]),
+    ("evaluator_decode_agreement", ["--ckpt", "missing", "--out", "missing.md"]),
 ])
 def test_examples_default_to_the_card_and_raise_without_one(example, argv, tmp_path,
                                                            monkeypatch):
