@@ -139,6 +139,20 @@ Phases, in order; the first failure raises and the script exits non-zero:
    ``synthvoc_benchmark``'s recipe trains for 1000 steps here: the device
    decode (the NMS kernel) against the host decoder within the JAX script's
    rule (``AGREEMENT OK``). The full-size runs go outside this script.
+13. The speed and profiling workflows at their default sizes, in this
+   process: (a) ``profile_breakdown`` (SSD300 batch 8 and 32, the decoder's
+   own stages timed on the trunk's y_pred, composed bit-equal to
+   ``decode_detections_fixed``, every stage time finite and positive, the
+   NMS kernel launched; SSD7's dispatch against its device time); (b)
+   ``serving_trunk_bench --flags`` (the preprocessing fold exact at f32
+   within test_fold_preprocessing_exact's tolerance and within
+   FOLD_BF16_FACTOR of bf16 rounding at bf16; no block over 100% of the
+   H100's bf16 peak or under its floor; ``cudnn.benchmark`` off and on,
+   each in its own process that launches the NMS kernel); (c)
+   ``streaming_bench`` (the loss finite, the stream's and the train's
+   fractions of the upload ceiling at most STREAM_FRACTION_MAX); (d)
+   ``coco_decode_bench`` (every row finite, the NMS kernel launched at
+   COCO's 640 lanes without compaction).
 
 It prints JSON lines (timings, then the kernels line), then as its last line
 ``{"ok": true, "device": {...}}``. With no CUDA device it raises before
@@ -150,7 +164,6 @@ import json
 import os
 import random
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -181,6 +194,7 @@ from ssd_keras_torch.decoder import decode_detections_fixed
 from ssd_keras_torch.encoder import pad_labels
 from ssd_keras_torch.eval import COCOEvalBBox, Evaluator, predict_all_to_json
 from ssd_keras_torch.eval.evaluator import HostCopy
+from ssd_keras_torch.examples.common import card_line, scale_to_trained_range
 from ssd_keras_torch.kernels import build
 from ssd_keras_torch.kernels import nms as nms_kernel
 from ssd_keras_torch.models import ssd300_predictor_sizes
@@ -337,6 +351,20 @@ AUG_AB_ARGS = ["--steps", "40", "--batch", "8", "--train-images", "64", "--val-i
 AGREEMENT_TRAIN_ARGS = ["--model", "ssd300", "--steps", "1000", "--train-images", "1000",
                         "--val-images", "64", "--eval-every", "1000", "--warmup", "200"]
 AGREEMENT_ARGS = ["--images", "96", "--batch", "32"]
+# Phase 13: the speed and profiling workflows at their default sizes.
+# streaming_bench: the ceiling is the same uploads without the augment,
+# encode or step, so the stream and the training from it can pass it only
+# by the rounds' noise.
+STREAM_FRACTION_MAX = 1.05
+# serving_trunk_bench's fold of the channel swap into conv1_1: at f32 (TF32
+# off) within test_fold_preprocessing_exact's tolerance (rtol = atol =
+# 1e-5, the script's FOLD_RTOL/FOLD_ATOL). At bf16 the fold is not bit-exact:
+# it reorders conv1_1's 27-term sums, so its outputs round differently and
+# the difference grows through the trunk like bf16 rounding does. Each of
+# the two bf16 graphs sits within its own rounding of the f32 graphs, which
+# agree to 1e-5, so their difference is held within twice the unfolded bf16
+# graph's largest |diff| from its f32 graph.
+FOLD_BF16_FACTOR = 2.0
 # The driver's rows that need h5py, and the rows that decode (each must
 # launch the NMS kernel in its own process).
 H5_ROWS = {"h5_export", "weight_sampling", "sampled_weights_load"}
@@ -348,13 +376,7 @@ def log(msg):
 
 
 def card_info():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    if not out:
-        raise RuntimeError("nvidia-smi printed no card")
-    return out[0]
+    return card_line("cuda")
 
 
 BUILDERS = {"ssd300": (ssd_300, SSDConfig.ssd300), "ssd512": (ssd_512, SSDConfig.ssd512)}
@@ -372,20 +394,11 @@ def model_for(state, mode, dtype, device, arch="ssd300", config=None):
 
 def seeded_state(arch="ssd300", config=None, seed=SEED):
     """Weights from a seeded generator, scaled into a trained detector's
-    output range. He init carries the raw 0-255 input's magnitude (~75 RMS)
-    through the trunk, which saturates the softmax at exactly 1.0 and
-    overflows the box exponent: conv1_1 at 1/100 brings the logits to O(1).
-    The loc heads at 1/4 then give encoded offsets of ~0.4 RMS, so every
-    decoded box stays near its anchor, as a trained model's do."""
+    output range (``examples.common.scale_to_trained_range``)."""
     build_model, default_config = BUILDERS[arch]
     model, _ = build_model(config or default_config(),
                            generator=torch.Generator().manual_seed(seed), device="cpu")
-    with torch.no_grad():
-        model.conv1_1.weight.mul_(0.01)
-        for name, module in model.named_children():
-            if name.endswith("_mbox_loc"):
-                module.weight.mul_(0.25)
-    return model.state_dict()
+    return scale_to_trained_range(model).state_dict()
 
 
 def random_lanes(rng, lanes, k, kind="prefix"):
@@ -1920,6 +1933,81 @@ def ab_workflows_phase(card):
     return lines, launches
 
 
+def speed_workflows_phase(card):
+    """Phase 13, the four speed and profiling workflows at their default
+    sizes, each ``main`` with its record in a temporary directory. Returns
+    (JSON lines, NMS launches by path)."""
+    from ssd_keras_torch.examples import (coco_decode_bench, profile_breakdown,
+                                          serving_trunk_bench, streaming_bench)
+
+    lines, launches = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) The trunk and the decoder's own stages; SSD7's launch overhead.
+        nms_kernel.launches = 0
+        t0 = time.perf_counter()
+        prof = profile_breakdown.main(["--out", os.path.join(tmp, "profile.md")])
+        torch.cuda.synchronize()
+        launches["speed_profile_breakdown"] = nms_kernel.launches
+        stage_ms = [row[k] for row in prof["ssd300"] for k in profile_breakdown.STAGE_KEYS]
+        lines.append(dict(metric="speed_profile_breakdown", ssd300=prof["ssd300"],
+                          ssd7=prof["ssd7"], seconds=time.perf_counter() - t0,
+                          timer="CUDA events", card=card))
+        if not (all(row["stages_equal_decoder"] and row["nms_impl"] == "cuda"
+                    and row["nms_launches"] > 0 for row in prof["ssd300"])
+                and all(np.isfinite(t) and t > 0 for t in stage_ms)
+                and launches["speed_profile_breakdown"]):
+            raise AssertionError(f"profile_breakdown: {prof['ssd300']}, "
+                                 f"{launches['speed_profile_breakdown']} NMS launches")
+
+        # (b) The preprocessing fold, the blocks' roofline, the cuDNN sweep.
+        t0 = time.perf_counter()
+        trunk = serving_trunk_bench.main(["--flags", "--out", os.path.join(tmp, "trunk.md")])
+        pre, blocks, flags = trunk["preprocessing"], trunk["blocks"], trunk["flag_sweep"]
+        launches["speed_serving_trunk_flags"] = sum(r["nms_launches"] for r in flags.values())
+        lines.append(dict(metric="speed_serving_trunk", preprocessing=pre, blocks=blocks,
+                          blocks_total_ms=trunk["blocks_total_ms"],
+                          blocks_total_floor_ms=trunk["blocks_total_floor_ms"],
+                          flag_sweep=flags, peaks=trunk["peaks"],
+                          fold_bf16_factor=FOLD_BF16_FACTOR,
+                          seconds=time.perf_counter() - t0, timer="CUDA events", card=card))
+        if not (pre["fold_f32_within_test_tolerance"]
+                and pre["fold_max_abs_diff"]
+                <= FOLD_BF16_FACTOR * pre["bf16_rounding_max_abs_diff"]
+                and all(b["pct_of_peak"] <= 100 and b["floor_ms"] <= b["ms"] for b in blocks)
+                and all(r["nms_launches"] > 0 for r in flags.values())):
+            raise AssertionError(f"serving_trunk_bench: {pre}, {blocks}, {flags}")
+
+        # (c) The streamed input against its upload ceiling, and training
+        # from it.
+        with torch.enable_grad():
+            t0 = time.perf_counter()
+            stream = streaming_bench.main(["--out", os.path.join(tmp, "stream.md")])
+        lines.append(dict(metric="speed_streaming", record=stream,
+                          fraction_max=STREAM_FRACTION_MAX, seconds=time.perf_counter() - t0,
+                          timer="host clock", card=card))
+        if not (np.isfinite(stream["final_loss"])
+                and stream["stream_fraction_of_ceiling"] <= STREAM_FRACTION_MAX
+                and stream["train_fraction_of_ceiling"] <= STREAM_FRACTION_MAX):
+            raise AssertionError(f"streaming_bench: {stream}")
+
+        # (d) compact_pool at COCO's and VOC's class counts.
+        nms_kernel.launches = 0
+        t0 = time.perf_counter()
+        rows = coco_decode_bench.main(["--out", os.path.join(tmp, "coco.md")])
+        torch.cuda.synchronize()
+        launches["speed_coco_decode"] = nms_kernel.launches
+        lines.append(dict(metric="speed_coco_decode", rows=rows,
+                          seconds=time.perf_counter() - t0, timer="CUDA events", card=card))
+        off = next(r for r in rows if r["model"] == "coco81" and r["compact_pool"] == 0)
+        if not (len(rows) == 10
+                and all(np.isfinite(r["ms_per_batch"]) and r["img_per_s"] > 0 for r in rows)
+                and off["nms_launches"] > 0):
+            raise AssertionError(f"coco_decode_bench: {rows}")
+    for line in lines:
+        log(f"{line['metric']}: {json.dumps({k: v for k, v in line.items() if k != 'metric'})}")
+    return lines, launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; the port's main path runs on one")
@@ -2051,6 +2139,10 @@ def main():
     ab_lines, ab_launches = ab_workflows_phase(card)
     lines += ab_lines
 
+    # 13. The speed and profiling workflows at their default sizes.
+    speed_lines, speed_launches = speed_workflows_phase(card)
+    lines += speed_lines
+
     for line in lines:
         print(json.dumps(line), flush=True)
 
@@ -2064,7 +2156,7 @@ def main():
         launches_by_path=dict(serving=main_launches, serving_requests=serve_launches,
                               **graph_launches,
                               **dp_launches, **eval_launches, host_chain=host_launches,
-                              **workflow_launches, **ab_launches),
+                              **workflow_launches, **ab_launches, **speed_launches),
     )]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

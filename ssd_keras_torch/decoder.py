@@ -59,7 +59,7 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def _topk(scores: torch.Tensor, k: int):
+def _topk_lanes(scores: torch.Tensor, k: int):
     """Top-k over the last axis, score-descending, ties lowest index first."""
     vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
@@ -133,7 +133,7 @@ def _finish(flat_scores, flat_classes, flat_boxes, top_k):
     """Global top-k over one image's survivors, zeroed where the score is 0,
     zero-padded to ``top_k`` rows: (B, top_k, 6)."""
     k_eff = min(top_k, flat_scores.shape[1])
-    top_scores, top_idx = _topk(flat_scores, k_eff)
+    top_scores, top_idx = _topk_lanes(flat_scores, k_eff)
     out = torch.cat(
         [
             torch.gather(flat_classes, 1, top_idx)[..., None],
@@ -148,6 +148,75 @@ def _finish(flat_scores, flat_classes, flat_boxes, top_k):
     return out
 
 
+# The stages of the Caffe decode, in the order ``_decode_caffe_batched``
+# calls them (``ssd_keras_torch.examples.profile_breakdown`` times each one):
+# ``compact_candidates`` -> ``_per_class_topk`` -> ``_nms_lanes`` ->
+# ``_global_topk``.
+
+
+def compact_candidates(confs, corners, m: int):
+    """Cross-class compaction: the top ``m`` boxes of each image by their
+    max non-background score, as class-major scores (B, C-1, m) and their
+    corners (B, m, 4). ``m`` = 0 compacts nothing: the class-major view of
+    all N boxes, and the corners as given."""
+    cls_scores = confs[:, :, 1:]  # (B, N, C-1); class 0 skipped
+    if not m:
+        return cls_scores.transpose(1, 2), corners
+    _, box_idx = _topk_lanes(cls_scores.amax(dim=-1), m)  # (B, M)
+    scores = torch.gather(
+        cls_scores, 1, box_idx[..., None].expand(-1, -1, cls_scores.shape[-1])
+    ).transpose(1, 2)  # (B, C-1, M)
+    corners = torch.gather(corners, 1, box_idx[..., None].expand(-1, -1, 4))
+    return scores, corners
+
+
+def _per_class_topk(scores, corners, k: int, thresh: float):
+    """The per-class threshold (strict >) and the top ``k`` candidates of
+    each (image, class) lane, from class-major ``scores`` (B, C-1, N') and
+    ``corners`` (B, N', 4). Returns the candidates' scores (B, C-1, K),
+    boxes (B, C-1, K, 4) and valid mask (B, C-1, K)."""
+    masked = torch.where(scores > thresh, scores, -1.0)
+    cand_scores, cand_idx = _topk_lanes(masked, k)  # (B, C-1, K)
+    cand_boxes = torch.gather(
+        corners[:, None].expand(-1, scores.shape[1], -1, -1), 2,
+        cand_idx[..., None].expand(-1, -1, -1, 4),
+    )  # (B, C-1, K, 4)
+    return cand_scores, cand_boxes, cand_scores > thresh
+
+
+def _nms_lanes(cand_boxes, valid, iou_threshold, border_delta, max_output_size):
+    """Greedy-NMS keep mask (..., K) of boxes (..., K, 4) and valid (..., K),
+    the leading axes flattened into the kernel's lanes; at most
+    ``max_output_size`` survivors a lane."""
+    k = valid.shape[-1]
+    # The gathers can return strided tensors (at batch 1 they do); the NMS
+    # kernel takes contiguous ones.
+    keep = greedy_nms_mask_batched(
+        cand_boxes.reshape(-1, k, 4).contiguous(),
+        valid.reshape(-1, k).contiguous(),
+        iou_threshold,
+        border_delta,
+    ).reshape(valid.shape)
+    if k > max_output_size:
+        # Candidates are score-descending, so survivors are too.
+        keep = keep & (torch.cumsum(keep, dim=-1) <= max_output_size)
+    return keep
+
+
+def _global_topk(keep, cand_scores, cand_boxes, top_k: int):
+    """The per-image top ``top_k`` over every class's survivors of
+    ``_nms_lanes``: (B, top_k, 6) rows ``[class_id, conf, xmin, ymin, xmax,
+    ymax]``."""
+    b, n_cls, k = keep.shape
+    kept_scores = torch.where(keep, cand_scores, 0.0)
+    class_ids = torch.arange(1, n_cls + 1, dtype=cand_scores.dtype, device=keep.device)
+    class_ids = class_ids[None, :, None].expand(b, -1, k)
+    return _finish(
+        kept_scores.reshape(b, -1), class_ids.reshape(b, -1),
+        cand_boxes.reshape(b, -1, 4), top_k,
+    )
+
+
 def _decode_caffe_batched(
     confs,  # (B, N, C) softmax confidences
     corners,  # (B, N, 4)
@@ -158,50 +227,14 @@ def _decode_caffe_batched(
     (batch, class) pair an independent NMS lane. See
     ``ssd_keras_tpu/decoder.py:_decode_caffe_batched`` for the candidate-pool
     and compaction exactness arguments."""
-    b, n, c = confs.shape
+    n = confs.shape[1]
     pool = max(nms_candidates or 0, nms_max_output_size)
-    k = min(pool, n)
-    thresh = _f32(confidence_thresh)
-
     m = _resolve_compact_pool(compact_pool, n, pool)
-    if m:
-        cls_scores = confs[:, :, 1:]  # (B, N, C-1); class 0 skipped
-        _, box_idx = _topk(cls_scores.amax(dim=-1), m)  # (B, M)
-        scores = torch.gather(
-            cls_scores, 1, box_idx[..., None].expand(-1, -1, c - 1)
-        ).transpose(1, 2)  # (B, C-1, M)
-        corners = torch.gather(corners, 1, box_idx[..., None].expand(-1, -1, 4))
-        k = min(k, m)
-    else:
-        scores = confs[:, :, 1:].transpose(1, 2)  # (B, C-1, N)
-    masked = torch.where(scores > thresh, scores, -1.0)
-    cand_scores, cand_idx = _topk(masked, k)  # (B, C-1, K)
-    cand_boxes = torch.gather(
-        corners[:, None].expand(-1, c - 1, -1, -1), 2,
-        cand_idx[..., None].expand(-1, -1, -1, 4),
-    )  # (B, C-1, K, 4)
-    valid = cand_scores > thresh
-
-    # The gathers can return strided tensors (at batch 1 they do); the NMS
-    # kernel takes contiguous ones.
-    keep = greedy_nms_mask_batched(
-        cand_boxes.reshape(b * (c - 1), k, 4).contiguous(),
-        valid.reshape(b * (c - 1), k).contiguous(),
-        iou_threshold,
-        border_delta,
-    ).reshape(b, c - 1, k)
-    if k > nms_max_output_size:
-        # At most nms_max_output_size survivors per class; candidates are
-        # score-descending, so survivors are too.
-        keep = keep & (torch.cumsum(keep, dim=-1) <= nms_max_output_size)
-
-    kept_scores = torch.where(keep, cand_scores, 0.0)
-    class_ids = torch.arange(1, c, dtype=confs.dtype, device=confs.device)
-    class_ids = class_ids[None, :, None].expand(b, -1, k)
-    return _finish(
-        kept_scores.reshape(b, -1), class_ids.reshape(b, -1),
-        cand_boxes.reshape(b, -1, 4), top_k,
-    )
+    scores, corners = compact_candidates(confs, corners, m)
+    cand_scores, cand_boxes, valid = _per_class_topk(
+        scores, corners, min(pool, n, m or n), _f32(confidence_thresh))
+    keep = _nms_lanes(cand_boxes, valid, iou_threshold, border_delta, nms_max_output_size)
+    return _global_topk(keep, cand_scores, cand_boxes, top_k)
 
 
 def decode_detections_fixed(
@@ -253,13 +286,11 @@ def _decode_fast_batched(
     conf, class_id = confs.max(dim=-1)  # first index among equal maxima
     eligible = (class_id != 0) & (conf >= _f32(confidence_thresh))
     masked = torch.where(eligible, conf, -1.0)
-    cand_scores, cand_idx = _topk(masked, k)  # (B, K)
+    cand_scores, cand_idx = _topk_lanes(masked, k)  # (B, K)
     cand_boxes = torch.gather(corners, 1, cand_idx[..., None].expand(-1, -1, 4))
     cand_classes = torch.gather(class_id, 1, cand_idx).to(confs.dtype)
-    valid = cand_scores > 0.0
-    keep = greedy_nms_mask_batched(cand_boxes, valid, iou_threshold, border_delta)
-    if k > nms_max_output_size:
-        keep = keep & (torch.cumsum(keep, dim=-1) <= nms_max_output_size)
+    keep = _nms_lanes(cand_boxes, cand_scores > 0.0, iou_threshold, border_delta,
+                      nms_max_output_size)
     scores = torch.where(keep, cand_scores, 0.0)
     return _finish(scores, cand_classes, cand_boxes, top_k)
 

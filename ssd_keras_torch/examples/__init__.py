@@ -19,7 +19,13 @@ flags and the lines their drivers parse:
 * the accuracy A/Bs: ``aug_chain_ab`` (the host augmentation chain against
   the device chain, by mAP), ``bf16_vs_f32_ssd300`` (bf16 against f32
   training from one init) and ``evaluator_decode_agreement`` (the device
-  decode against the host decoder on crowded scenes).
+  decode against the host decoder on crowded scenes);
+* the speed and profiling workflows: ``profile_breakdown`` (the trunk and
+  the decoder's own stages, and SSD7's launch overhead against its device
+  time), ``serving_trunk_bench`` (the preprocessing fold, each VGG block
+  against the card's roofline, ``--flags`` the cuDNN setting sweep),
+  ``streaming_bench`` (the streamed input against its upload ceiling) and
+  ``coco_decode_bench`` (the ``compact_pool`` sweep at 81 and 21 classes).
 
 Each runs on the card (``--device cuda``, the default) unless given
 ``--device cpu``; without a card, the default raises. Weights come from a

@@ -1,29 +1,35 @@
 """What the examples share: the Pascal-VOC class names, the device, dtype
-and weight arguments, checkpoint lookup, image reading and the NMS-launch
-line."""
+and weight arguments, checkpoint lookup, image reading, the NMS-launch
+line and the card's name and power limit."""
 
 from __future__ import annotations
 
 import os
+import subprocess
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ssd_keras_torch.config import SSDConfig
 from ssd_keras_torch.devices import target_device
 from ssd_keras_torch.kernels import nms as nms_kernel
+from ssd_keras_torch.models import ssd_300
 from ssd_keras_torch.weights_io import load_keras_h5_weights
 
 __all__ = [
     "VOC_CLASSES",
     "add_device_args",
     "add_weight_args",
+    "card_line",
     "checkpoint_step",
     "device_of",
     "dtype_of",
     "latest_checkpoint",
     "load_weights",
     "read_images",
+    "scale_to_trained_range",
+    "seeded_ssd300",
     "print_nms_launches",
 ]
 
@@ -120,3 +126,47 @@ def print_nms_launches() -> None:
     """How often this process launched the greedy-NMS CUDA kernel (0 on the
     CPU, where the plain version runs)."""
     print(f"NMS kernel launches: {nms_kernel.launches}")
+
+
+def card_line(device) -> str:
+    """The card of ``device`` as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` gives it (a record's speed is read against the
+    card's power limit); ``cpu`` for the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    index = torch.cuda.current_device() if device.index is None else device.index
+    out = subprocess.run(
+        ["nvidia-smi", "-i", str(index), "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    if not out:
+        raise RuntimeError("nvidia-smi printed no card")
+    return out.splitlines()[0]
+
+
+def scale_to_trained_range(model: torch.nn.Module) -> torch.nn.Module:
+    """Scale an SSD300's or SSD512's seeded weights in place so that its
+    outputs sit in a trained detector's range, and return it. Raw He init
+    carries the 0-255 input's magnitude (~75 RMS) through the trunk, which
+    saturates the softmax at exactly 1.0 and overflows the box exponent:
+    conv1_1 at 1/100 brings the logits to O(1). The loc heads at 1/4 then
+    give encoded offsets of ~0.4 RMS, so every decoded box stays near its
+    anchor, as a trained model's do."""
+    with torch.no_grad():
+        model.conv1_1.weight.mul_(0.01)
+        for name, module in model.named_children():
+            if name.endswith("_mbox_loc"):
+                module.weight.mul_(0.25)
+    return model
+
+
+def seeded_ssd300(mode: str, dtype: torch.dtype, device, config: Optional[SSDConfig] = None,
+                  seed: int = 0) -> torch.nn.Module:
+    """SSD300 (Pascal VOC unless ``config``) from the seeded init, scaled by
+    :func:`scale_to_trained_range`, on ``device``."""
+    device = target_device(device)
+    model, _ = ssd_300(config or SSDConfig.ssd300(), mode=mode, compute_dtype=dtype,
+                       device="cpu", generator=torch.Generator().manual_seed(seed))
+    return scale_to_trained_range(model).to(device)

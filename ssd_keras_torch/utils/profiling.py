@@ -12,7 +12,10 @@ Port of ``ssd_keras_tpu/utils/profiling.py``:
   on the CPU,
 * :func:`time_cuda` and :func:`time_device` -- milliseconds a call by CUDA
   events, of whole calls back to back or of device time alone, and
-  :func:`summary` of their repeats.
+  :func:`summary` of their repeats,
+* :func:`time_calls` -- a function's device time on the card (the hold
+  lengthened to fit its enqueue), its host-clock time on the CPU, with the
+  timer named.
 
 The JAX package's ``time_in_jit`` and its chained-checksum timing work
 around a remote TPU whose ``block_until_ready`` does not block; CUDA events
@@ -22,6 +25,7 @@ need neither, so they are not ported.
 from __future__ import annotations
 
 import contextlib
+import gc
 import os
 import statistics
 import tempfile
@@ -31,7 +35,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-__all__ = ["trace", "device_sync", "benchmark_fps", "time_cuda", "time_device", "summary"]
+__all__ = ["trace", "device_sync", "benchmark_fps", "time_cuda", "time_device", "time_calls",
+           "summary"]
 
 # Cycles of torch.cuda._sleep that hold the card while time_device enqueues:
 # at least 10 ms at the H100's highest SM clock.
@@ -91,30 +96,86 @@ def time_cuda(fn: Callable, iters: int, repeats: int = 5, warmup: int = 3):
     return runs
 
 
-def time_device(fn: Callable, iters: int, repeats: int = 5, warmup: int = 3):
+@contextlib.contextmanager
+def _gc_paused():
+    """The garbage collector off for the body, as ``timeit`` runs: in a
+    process with a large heap one full collection can outlast a hold."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
+def time_device(fn: Callable, iters: int, repeats: int = 5, warmup: int = 3,
+                hold_cycles: int = HOLD_CYCLES):
     """Milliseconds of device time per call of ``fn``, one value per repeat:
     CUDA events around ``iters`` calls that the host enqueues while the card
-    is held busy (``torch.cuda._sleep``), so the host's own time per call is
-    not counted. Raises if the host took longer to enqueue than the hold."""
+    is held busy (``torch.cuda._sleep`` of ``hold_cycles``), so the host's
+    own time per call is not counted. Raises if the host took longer than
+    half the hold to enqueue."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     runs = []
     for _ in range(repeats):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(HOLD_CYCLES)
-        t0 = time.perf_counter()
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        host_s = time.perf_counter() - t0
+        with _gc_paused():
+            torch.cuda._sleep(hold_cycles)
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            host_s = time.perf_counter() - t0
         end.synchronize()
-        if host_s > HOLD_CYCLES / MAX_SM_CLOCK_HZ / 2:
+        if host_s > hold_cycles / MAX_SM_CLOCK_HZ / 2:
             raise AssertionError(f"enqueueing {iters} calls took {1e3 * host_s:.2f} ms of host "
                                  "time, too close to the hold: the device time would include it")
         runs.append(start.elapsed_time(end) / iters)
     return runs
+
+
+def time_calls(fn: Callable, device, iters: int, repeats: int = 5, warmup: int = 3) -> dict:
+    """Milliseconds per call of ``fn`` on ``device``, as :func:`summary` of
+    the repeats plus ``iters``, ``timer`` and ``hold_ms``.
+
+    On the card: :func:`time_device` over ``iters`` calls, its hold at least
+    eight times the host's slowest enqueue of those calls in three passes
+    under a hold (a shared host's speed wanders), so the enqueue fits. Keep ``iters``
+    times the kernels a call launches well under the launch queue's ~1000
+    entries: a full queue blocks the host until the hold ends. On the CPU:
+    the host clock around ``iters`` calls, since there the host does the
+    work."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        for _ in range(warmup):
+            fn()
+        runs = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            runs.append(1e3 * (time.perf_counter() - t0) / iters)
+        return dict(summary(runs), iters=iters, timer="host clock (cpu)", hold_ms=None)
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    enqueue_s = 0.0
+    for _ in range(3):
+        with _gc_paused():
+            torch.cuda._sleep(HOLD_CYCLES)
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            enqueue_s = max(enqueue_s, time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    hold = max(HOLD_CYCLES, int(8 * enqueue_s * MAX_SM_CLOCK_HZ))
+    runs = time_device(fn, iters, repeats, warmup=0, hold_cycles=hold)
+    return dict(summary(runs), iters=iters, timer="cuda events, card held",
+                hold_ms=1e3 * hold / MAX_SM_CLOCK_HZ)
 
 
 def summary(runs):

@@ -54,7 +54,11 @@ def test_import_needs_neither_jax_nor_the_jax_package():
         "        'ssd_keras_torch.examples.run_workflows_synthvoc',\n"
         "        'ssd_keras_torch.examples.aug_chain_ab',\n"
         "        'ssd_keras_torch.examples.bf16_vs_f32_ssd300',\n"
-        "        'ssd_keras_torch.examples.evaluator_decode_agreement'} <= set(sys.modules)\n"
+        "        'ssd_keras_torch.examples.evaluator_decode_agreement',\n"
+        "        'ssd_keras_torch.examples.coco_decode_bench',\n"
+        "        'ssd_keras_torch.examples.profile_breakdown',\n"
+        "        'ssd_keras_torch.examples.serving_trunk_bench',\n"
+        "        'ssd_keras_torch.examples.streaming_bench'} <= set(sys.modules)\n"
         "bad = {'jax', 'flax', 'optax', 'orbax', 'ssd_keras_tpu', 'h5py', 'PIL', 'triton',\n"
         "       'cv2', 'bs4', 'lxml'}\n"
         "bad &= set(sys.modules)\n"
@@ -275,6 +279,10 @@ def test_evaluation_entry_point_without_a_card_raises_and_builds_nothing(name, m
     ("aug_chain_ab", ["--out", "missing_out"]),
     ("bf16_vs_f32_ssd300", ["--out", "missing.md"]),
     ("evaluator_decode_agreement", ["--ckpt", "missing", "--out", "missing.md"]),
+    ("coco_decode_bench", ["--out", "missing.md"]),
+    ("profile_breakdown", ["--out", "missing.md"]),
+    ("serving_trunk_bench", ["--flags", "--out", "missing.md"]),
+    ("streaming_bench", ["--out", "missing.md"]),
 ])
 def test_examples_default_to_the_card_and_raise_without_one(example, argv, tmp_path,
                                                            monkeypatch):

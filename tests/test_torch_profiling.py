@@ -69,3 +69,18 @@ def test_summary_of_repeats():
     s = profiling.summary([2.0, 1.0, 4.0])
     assert (s["median"], s["min"], s["max"]) == (2.0, 1.0, 4.0)
     assert s["spread_pct"] == pytest.approx(150.0) and s["runs"] == [2.0, 1.0, 4.0]
+
+
+def test_time_calls_on_the_cpu_names_its_timer():
+    calls = []
+    out = profiling.time_calls(lambda: calls.append(1), "cpu", iters=4, repeats=3, warmup=2)
+    assert len(calls) == 2 + 3 * 4
+    assert out["iters"] == 4 and len(out["runs"]) == 3 and out["hold_ms"] is None
+    assert out["timer"] == "host clock (cpu)"
+    assert {"median", "min", "max", "spread_pct"} <= set(out)
+
+
+def test_card_line_of_the_cpu():
+    from ssd_keras_torch.examples.common import card_line
+
+    assert card_line("cpu") == "cpu"
