@@ -111,9 +111,8 @@ Phases, in order; the first failure raises and the script exits non-zero:
    ``DataAugmentationConstantInputSize``, as the SSD7 example builds it: 2
    steps, finite losses. (c) ``host_decode_batches`` into
    ``StreamingDeviceInput``: 4 batches of 32 through the on-device augment and
-   encode into the DP step under a one-rank NCCL group, finite losses. The
-   JPEG batch decoder is not ported (the card's machine has no libjpeg), so
-   there is no JPEG part. No NMS launch: training decodes nothing.
+   encode into the DP step under a one-rank NCCL group, finite losses. No
+   NMS launch: training decodes nothing. (The JPEG part is phase 14.)
 11. The user workflows (``ssd_keras_torch.examples``), run as a user runs
    them: (a) ``synthetic_smoke_ssd300`` at its defaults (SSD300 bf16, 400
    steps at batch 16 on 16 images with the on-device pipeline) must halve
@@ -153,13 +152,35 @@ Phases, in order; the first failure raises and the script exits non-zero:
    fractions of the upload ceiling at most STREAM_FRACTION_MAX); (d)
    ``coco_decode_bench`` (every row finite, the NMS kernel launched at
    COCO's 640 lanes without compaction).
+14. The JPEG batch decoder on the card (``native.decode_jpeg_batch``:
+   nvJPEG to planes, then the colour kernel ``csrc/jpeg_color.cu``, libjpeg's
+   upsampling and conversion): (a) 18 files made with PIL from seeded
+   SynthVOC scenes (500x375 and 333x251, quality 75 and 95, 4:4:4, 4:2:2
+   and 4:2:0; gray at both sizes; progressive; restart markers; an EXIF
+   orientation, not applied; CMYK) decoded as one batch, each held to PIL's
+   decode (JPEG_GRAY_MAX, JPEG_COLOR_MAX, JPEG_COLOR_MEAN), the CMYK file
+   read through PIL with PIL's (H, W, 4), a truncated file raising with its
+   index, and beside them nvJPEG's own RGB output's distance from PIL;
+   (b) the colour kernel against its plain version on nvJPEG's planes
+   of those files and of 32 VOC-size 4:2:0 files, bit for bit, with its
+   device time, the plain version's and its bound; (c) decode img/s of the
+   32 files, host bytes to host arrays, over 20 repeats: the card's batch
+   call, its nvJPEG step alone, and PIL one file at a time; (d) a
+   ``DataGenerator`` over a folder of 256 such files through the SSD300
+   host chain at batch 32, one epoch with the JPEG batch path on the card
+   and one through PIL from the same seeds: the same boxes, the
+   generator's img/s each way and the share of a batch's time decoding
+   takes; the batch path launches nvJPEG and the colour kernel once a
+   batch.
 
 It prints JSON lines (timings, then the kernels line), then as its last line
 ``{"ok": true, "device": {...}}``. With no CUDA device it raises before
-printing any result. Imports torch, numpy and ssd_keras_torch only.
+printing any result. Imports torch, numpy and ssd_keras_torch, and PIL in
+phase 14 (to make the JPEG files and read them as PIL does).
 """
 
 import contextlib
+import io
 import json
 import os
 import random
@@ -167,6 +188,7 @@ import statistics
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -186,7 +208,7 @@ from ssd_keras_torch import (
 )
 from ssd_keras_torch import decoder
 from ssd_keras_torch import train as T
-from ssd_keras_torch.data import SynthVOC
+from ssd_keras_torch.data import DataGenerator, SynthVOC
 from ssd_keras_torch.data.chains import DataAugmentationConstantInputSize, SSDDataAugmentation
 from ssd_keras_torch.data.device_aug import DeviceSSDAugmentation, batch_seed, geometry_from_draws
 from ssd_keras_torch.data.streaming import StreamingDeviceInput, host_decode_batches
@@ -196,13 +218,15 @@ from ssd_keras_torch.eval import COCOEvalBBox, Evaluator, predict_all_to_json
 from ssd_keras_torch.eval.evaluator import HostCopy
 from ssd_keras_torch.examples.common import card_line, scale_to_trained_range
 from ssd_keras_torch.kernels import build
+from ssd_keras_torch.kernels import jpeg_color as jpeg_color_kernel
 from ssd_keras_torch.kernels import nms as nms_kernel
 from ssd_keras_torch.models import ssd300_predictor_sizes
+from ssd_keras_torch.ops import jpeg_color
 from ssd_keras_torch.ops.nms import greedy_nms_mask, iou_suppression_mask, lane_bounds, words_read
 from ssd_keras_torch.parallel import sharding as sh
 from ssd_keras_torch.parallel.dryrun import dp_check_rank
 from ssd_keras_torch.parallel.launch import run_ranks
-from ssd_keras_torch.utils.profiling import summary, time_cuda, time_device
+from ssd_keras_torch.utils.profiling import summary, time_calls, time_cuda, time_device
 
 SEED = 0
 BATCH = 8
@@ -369,6 +393,35 @@ FOLD_BF16_FACTOR = 2.0
 # launch the NMS kernel in its own process).
 H5_ROWS = {"h5_export", "weight_sampling", "sampled_weights_load"}
 DECODE_ROWS = {"ssd300_evaluation", "ssd300_evaluation_coco", "ssd300_inference"}
+# Phase 14: the JPEG batch decoder on the card (nvJPEG's planes, then the
+# colour kernel: libjpeg's fancy upsampling and YCbCr -> RGB) against PIL.
+# nvJPEG's planes are within one level of libjpeg's integer IDCT (17 files
+# compared plane by plane); the colour stage is libjpeg's own arithmetic, so
+# one level of Y, Cb or Cr moves R, G or B by at most 1 + 2 levels (Cb's
+# weight in B is 1.772): 3 at most, rarely, and a mean far under a level.
+# Gray files are their Y plane: one level.
+JPEG_GRAY_MAX = 1
+JPEG_COLOR_MAX = 3
+JPEG_COLOR_MEAN = 0.1
+# (h, w): VOC's commonest size and an odd one, at two qualities and the
+# three subsamplings PIL writes.
+JPEG_SIZES = ((375, 500), (251, 333))
+JPEG_QUALITIES = (75, 95)
+JPEG_SUBSAMPLINGS = {"444": 0, "422": 1, "420": 2}
+# Timings: 32 VOC-size 4:2:0 files (SynthVOC's own quality, 95) a batch, 20
+# repeats; the generator over a folder of 256 such files, batches of 32
+# through the SSD300 host chain, one epoch with each path.
+JPEG_BATCH = 32
+JPEG_REPEATS = 20
+JPEG_QUALITY = 95
+JPEG_FOLDER_FILES = 256
+# The colour kernel's work a pixel, for its bound: ~30 integer operations
+# (two chroma samples of 4-6 loads, multiplies, adds and shifts each, the
+# three table terms, three clamps), counted at the f32 rate outside the
+# tensor cores; the bytes bound it either way.
+JPEG_OPS_PER_PIXEL = 30
+JPEG_COLOR_LIBRARY_NOTE = ("no PyTorch call computes libjpeg's chroma upsampling and "
+                           "YCbCr -> RGB conversion")
 
 
 def log(msg):
@@ -2008,6 +2061,290 @@ def speed_workflows_phase(card):
     return lines, launches
 
 
+def jpeg_scene(seed, height, width):
+    """A SynthVOC scene cropped to ``height`` x ``width`` and its boxes
+    inside the crop (8 pixels a side at least)."""
+    image, labels = SynthVOC(1, image_size=max(height, width), seed=seed).render(0)
+    image = np.ascontiguousarray(image[:height, :width])
+    boxes = labels.copy()
+    boxes[:, [1, 3]] = boxes[:, [1, 3]].clip(0, width)
+    boxes[:, [2, 4]] = boxes[:, [2, 4]].clip(0, height)
+    keep = (boxes[:, 3] - boxes[:, 1] >= 8) & (boxes[:, 4] - boxes[:, 2] >= 8)
+    if not keep.any():
+        boxes, keep = np.array([[1, 2, 2, 40, 40]], np.float32), [True]
+    return image, boxes[keep]
+
+
+def encode_jpeg(image, **options):
+    """``image`` (H x W gray or H x W x 3 RGB uint8) as a JPEG file, by PIL."""
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(image).save(buf, "JPEG", **options)
+    return buf.getvalue()
+
+
+def pil_decode(data):
+    from PIL import Image
+
+    with Image.open(io.BytesIO(data)) as img:
+        return np.array(img)
+
+
+def jpeg_fixtures():
+    """Phase 14's files, name -> bytes, made with PIL from seeded scenes."""
+    from PIL import Image
+
+    files = {}
+    for k, (h, w) in enumerate(JPEG_SIZES):
+        scene, _ = jpeg_scene(SEED + 40 + k, h, w)
+        for q in JPEG_QUALITIES:
+            for name, sub in JPEG_SUBSAMPLINGS.items():
+                files[f"{w}x{h}_q{q}_{name}"] = encode_jpeg(scene, quality=q, subsampling=sub)
+    voc, _ = jpeg_scene(SEED + 40, *JPEG_SIZES[0])
+    odd, _ = jpeg_scene(SEED + 41, *JPEG_SIZES[1])
+    files["gray_500x375"] = encode_jpeg(np.asarray(Image.fromarray(voc).convert("L")),
+                                        quality=90)
+    files["gray_333x251"] = encode_jpeg(np.asarray(Image.fromarray(odd).convert("L")),
+                                        quality=90)
+    files["progressive_420"] = encode_jpeg(voc, quality=90, subsampling=2, progressive=True)
+    files["restart_markers_420"] = encode_jpeg(odd, quality=90, subsampling=2,
+                                               restart_marker_blocks=4)
+    exif = Image.Exif()
+    exif[0x0112] = 6  # "rotate 90 CW" orientation: Image.open does not apply it
+    files["exif_orientation_6"] = encode_jpeg(odd, quality=90, exif=exif.tobytes())
+    buf = io.BytesIO()
+    Image.fromarray(voc).convert("CMYK").save(buf, "JPEG", quality=90)
+    files["cmyk"] = buf.getvalue()
+    return files
+
+
+def held_to_pil(name, got, want):
+    """(max |diff|, mean |diff|) of a decoded file against PIL's decode,
+    raising past phase 14's tolerances or on another shape."""
+    if got.shape != want.shape or got.dtype != np.uint8:
+        raise AssertionError(f"JPEG {name}: shape {got.shape} {got.dtype}, PIL {want.shape}")
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    worst, mean = int(diff.max()), float(diff.mean())
+    if name == "cmyk":
+        limit_max, limit_mean = 0, 0.0  # read through PIL
+    elif got.ndim == 2:
+        limit_max, limit_mean = JPEG_GRAY_MAX, JPEG_GRAY_MAX
+    else:
+        limit_max, limit_mean = JPEG_COLOR_MAX, JPEG_COLOR_MEAN
+    if worst > limit_max or mean > limit_mean:
+        raise AssertionError(f"JPEG {name}: max |diff| {worst} (limit {limit_max}), mean "
+                             f"{mean:.4f} (limit {limit_mean}) against PIL")
+    return worst, mean
+
+
+def nvjpeg_rgbi(buffers):
+    """nvJPEG's own interleaved RGB of each file (gray: its first channel),
+    one ``nvjpegDecodeBatched`` call: what the colour kernel replaces, for
+    its difference from PIL."""
+    import ctypes
+
+    from ssd_keras_torch.native import jpeg
+
+    lib = build.load_nvjpeg_library()
+    bufs = [np.frombuffer(b, np.uint8) for b in buffers]
+    sizes = [jpeg._header(lib, 0, i, b)[2:] for i, b in enumerate(bufs)]
+    outs = [torch.empty(h[0] * w[0] * 3, dtype=torch.uint8, device="cuda") for w, h in sizes]
+    n = len(bufs)
+    with jpeg._LOCK:
+        code = lib.ssd_nvjpeg_decode_batched(
+            0, (ctypes.c_void_p * n)(*[b.ctypes.data for b in bufs]),
+            (ctypes.c_size_t * n)(*[b.size for b in bufs]), n,
+            (ctypes.c_void_p * (3 * n))(*[p for o in outs for p in (o.data_ptr(), None, None)]),
+            (ctypes.c_size_t * (3 * n))(*[p for w, _ in sizes for p in (3 * w[0], 0, 0)]),
+            1, torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+    if code != 0:
+        raise AssertionError(f"nvJPEG's RGBI decode failed: {code}")
+    rgb = [o.cpu().numpy().reshape(h[0], w[0], 3) for o, (w, h) in zip(outs, sizes)]
+    return [x[..., 0] if pil_decode(b).ndim == 2 else x for x, b in zip(rgb, buffers)]
+
+
+def color_kernel_part(planes, layout, out_bytes, name):
+    """The colour kernel against its plain version on the same planes on the
+    card (bit for bit), with its device time, the plain version's and the
+    bound of the bytes and operations these inputs need."""
+    got = jpeg_color_kernel.ycc_to_rgb(planes, layout, out_bytes)
+    want = jpeg_color.ycc_to_rgb(planes, layout, out_bytes)
+    err = int((got.int() - want.int()).abs().max()) if out_bytes else 0
+    if err:
+        raise AssertionError(f"colour kernel != plain on {name}: max |diff| {err}")
+    rows = layout.numpy()
+    pixels = int((rows[:, 5] * rows[:, 6]).sum())
+    color = rows[:, 7] != jpeg_color.KIND_GRAY
+    nbytes = planes.numel() + layout.numel() * 8 + out_bytes
+    ops = JPEG_OPS_PER_PIXEL * int((rows[color, 5] * rows[color, 6]).sum())
+    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
+    kernel_ms = time_calls(lambda: jpeg_color_kernel.ycc_to_rgb(planes, layout, out_bytes),
+                           "cuda", iters=20)
+    plain_ms = summary(time_cuda(lambda: jpeg_color.ycc_to_rgb(planes, layout, out_bytes), 1,
+                                 warmup=1))
+    return dict(shape=name, images=len(rows), pixels=pixels, bytes=nbytes, ops=ops,
+                max_abs_err=err, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                library_ms=None, library_note=JPEG_COLOR_LIBRARY_NOTE)
+
+
+def jpeg_generator_epoch(folder, labels, jpeg_device, device, seed):
+    """One epoch of the SSD300 host chain over the folder's JPEGs with the
+    JPEG path ``jpeg_device`` (None: PIL), targets encoded on ``device``:
+    (seconds, [(images, boxes)] a batch)."""
+    files = sorted(os.listdir(folder))
+    dataset = DataGenerator(filenames=[os.path.join(folder, f) for f in files],
+                            labels=[labels[f] for f in files], jpeg_device=jpeg_device)
+    enc = SSDInputEncoder(SSDConfig.ssd300(), ssd300_predictor_sizes(300, 300),
+                          max_gt_boxes=HOST_MAX_GT, device=device)
+    np.random.seed(seed)
+    random.seed(seed)
+    gen = dataset.generate(batch_size=HOST_BATCH, shuffle=True,
+                           transformations=[SSDDataAugmentation(300, 300)], label_encoder=enc,
+                           returns=["processed_images", "encoded_labels", "processed_labels"])
+    batches = []
+    t0 = time.perf_counter()
+    for _ in range(len(files) // HOST_BATCH):
+        images, _, boxes = next(gen)
+        batches.append((images, boxes))
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0, batches
+
+
+def jpeg_phase(card):
+    """Phase 14: the JPEG batch decoder on the card. Returns (timing lines,
+    the colour kernel's record for the kernels line)."""
+    from ssd_keras_torch.native import jpeg
+
+    lines = []
+    # (a) The fixtures as one batch, each held to PIL; CMYK through PIL.
+    files = jpeg_fixtures()
+    names = list(files)
+    launched = (jpeg.launches, jpeg_color_kernel.launches)
+    decoded = jpeg.decode_jpeg_batch([files[n] for n in names])
+    if (jpeg.launches - launched[0], jpeg_color_kernel.launches - launched[1]) != (1, 1):
+        raise AssertionError("the fixtures' batch did not take one nvJPEG call and one "
+                             "colour kernel launch")
+    per_file = {}
+    for name, got in zip(names, decoded):
+        worst, mean = held_to_pil(name, got, pil_decode(files[name]))
+        per_file[name] = dict(shape=list(got.shape), max_abs_diff=worst, mean_abs_diff=mean)
+    if decoded[names.index("cmyk")].shape[-1] != 4:
+        raise AssertionError("the CMYK file did not keep PIL's (H, W, 4)")
+    color = [v for n, v in per_file.items() if len(v["shape"]) == 3 and n != "cmyk"]
+    # What nvJPEG's own RGB output would give instead of the colour kernel.
+    ycc = [n for n in names if n != "cmyk"]
+    for name, rgbi in zip(ycc, nvjpeg_rgbi([files[n] for n in ycc])):
+        diff = np.abs(rgbi.astype(np.int16) - pil_decode(files[name]))
+        per_file[name].update(nvjpeg_rgbi_max_abs_diff=int(diff.max()),
+                              nvjpeg_rgbi_mean_abs_diff=float(diff.mean()))
+    lines.append(dict(metric="jpeg_decode_vs_pil", files=per_file,
+                      color_max_abs_diff=max(v["max_abs_diff"] for v in color),
+                      color_mean_abs_diff_max=max(v["mean_abs_diff"] for v in color),
+                      nvjpeg_rgbi_max_abs_diff=max(v["nvjpeg_rgbi_max_abs_diff"] for v in color),
+                      nvjpeg_rgbi_mean_abs_diff_max=max(v["nvjpeg_rgbi_mean_abs_diff"]
+                                                         for v in color),
+                      limits=dict(gray_max=JPEG_GRAY_MAX, color_max=JPEG_COLOR_MAX,
+                                  color_mean=JPEG_COLOR_MEAN), card=card))
+    log(f"JPEG fixtures on the card within PIL's: colour max |diff| "
+        f"{lines[-1]['color_max_abs_diff']}, worst mean {lines[-1]['color_mean_abs_diff_max']:.4f}"
+        f"; gray max {max(per_file[n]['max_abs_diff'] for n in names if n.startswith('gray'))}"
+        f"; CMYK through PIL {per_file['cmyk']['shape']}; nvJPEG's own RGB: max |diff| "
+        f"{lines[-1]['nvjpeg_rgbi_max_abs_diff']}, worst mean "
+        f"{lines[-1]['nvjpeg_rgbi_mean_abs_diff_max']:.4f}")
+    # A corrupt file raises with its index.
+    try:
+        jpeg.decode_jpeg_batch([files[names[0]], files[names[0]][:100]])
+    except ValueError as e:
+        if "image 1" not in str(e):
+            raise
+    else:
+        raise AssertionError("a truncated JPEG decoded without an error")
+
+    # (b) The colour kernel against its plain version on nvJPEG's planes:
+    # the fixtures' (every kind, odd sizes) and 32 VOC-size 4:2:0 files'.
+    scenes = [jpeg_scene(SEED + 100 + k, *JPEG_SIZES[0]) for k in range(JPEG_BATCH)]
+    voc = [encode_jpeg(img, quality=JPEG_QUALITY, subsampling=2) for img, _ in scenes]
+    fixtures_part = color_kernel_part(*jpeg.decode_planes([files[n] for n in names])[:3],
+                                      "fixtures")
+    planes, layout, out_bytes, _ = jpeg.decode_planes(voc)
+    voc_part = color_kernel_part(planes, layout, out_bytes, "voc32_420")
+    lines.append(dict(metric="jpeg_color_kernel_ms", parts=[fixtures_part, voc_part], card=card))
+    log(f"colour kernel == plain on the card (fixtures and 32 VOC files); VOC batch "
+        f"{voc_part['kernel_ms']['median'] * 1e3:.1f} us, bound "
+        f"{voc_part['bound_ms'] * 1e3:.1f} us ({voc_part['bound_by']}), plain "
+        f"{voc_part['plain_ms']['median']:.2f} ms")
+
+    # (c) Decode img/s, host bytes to host arrays: the card's batch call
+    # (and its nvJPEG step alone) against PIL one file at a time.
+    def timed(fn):
+        fn()
+        runs = []
+        for _ in range(JPEG_REPEATS):
+            t0 = time.perf_counter()
+            fn()
+            runs.append(time.perf_counter() - t0)
+        rates = [JPEG_BATCH / r for r in runs]
+        return dict(img_per_s=statistics.median(rates), img_per_s_min=min(rates),
+                    img_per_s_max=max(rates),
+                    spread_pct=100 * (max(rates) - min(rates)) / statistics.median(rates))
+
+    card_rate = timed(lambda: jpeg.decode_jpeg_batch(voc))
+    planes_rate = timed(lambda: jpeg.decode_planes(voc))
+    pil_rate = timed(lambda: [pil_decode(b) for b in voc])
+    lines.append(dict(metric="jpeg_decode_img_per_s", files=JPEG_BATCH, size="500x375",
+                      subsampling="4:2:0", quality=JPEG_QUALITY, repeats=JPEG_REPEATS,
+                      card_batch=card_rate, card_nvjpeg_planes_only=planes_rate,
+                      pil_one_by_one=pil_rate, timer="host clock", card=card))
+    log(f"JPEG decode of {JPEG_BATCH} VOC files: card {card_rate['img_per_s']:.0f} img/s "
+        f"(nvJPEG to planes alone {planes_rate['img_per_s']:.0f}), PIL "
+        f"{pil_rate['img_per_s']:.0f} img/s")
+
+    # (d) DataGenerator over a folder of 256 such files through the SSD300
+    # host chain: the JPEG batch path on the card against PIL, same seeds.
+    with tempfile.TemporaryDirectory() as folder:
+        labels = {}
+        for k in range(JPEG_FOLDER_FILES):
+            name = f"{k:06d}.jpg"
+            with open(os.path.join(folder, name), "wb") as f:
+                f.write(voc[k % JPEG_BATCH])
+            labels[name] = scenes[k % JPEG_BATCH][1]
+        jpeg.launches = jpeg_color_kernel.launches = 0
+        batch_s, batch_out = jpeg_generator_epoch(folder, labels, "cuda", "cuda", SEED + 50)
+        path_launches = dict(nvjpeg_batched=jpeg.launches, colour_kernel=jpeg_color_kernel.launches)
+        pil_s, pil_out = jpeg_generator_epoch(folder, labels, None, "cuda", SEED + 50)
+    n_batches = len(batch_out)
+    if path_launches != dict(nvjpeg_batched=n_batches, colour_kernel=n_batches):
+        raise AssertionError(f"generator's JPEG batch path launches: {path_launches}")
+    image_diff = 0
+    for (xa, boxes_a), (xb, boxes_b) in zip(batch_out, pil_out):
+        if not all(np.array_equal(a, b) for a, b in zip(boxes_a, boxes_b)):
+            raise AssertionError("the two JPEG paths' boxes differ (same seeds)")
+        check_host_batch("JPEG generator", xa, boxes_a, HOST_BATCH, 300)
+        image_diff = max(image_diff, int(np.abs(xa.astype(np.int16) - xb).max()))
+    images = n_batches * HOST_BATCH
+    gen_batch, gen_pil = images / batch_s, images / pil_s
+    decode_share = (1 / card_rate["img_per_s"]) / (1 / gen_batch)
+    pil_share = (1 / pil_rate["img_per_s"]) / (1 / gen_pil)
+    lines.append(dict(metric="jpeg_generator_img_per_s", files=JPEG_FOLDER_FILES,
+                      batch=HOST_BATCH, chain="SSDDataAugmentation(300, 300)",
+                      jpeg_batch_path=gen_batch, pil_path=gen_pil,
+                      decode_share_batch_path=decode_share, decode_share_pil_path=pil_share,
+                      processed_images_max_abs_diff=image_diff, launches=path_launches,
+                      timer="host clock", card=card))
+    log(f"generator over {JPEG_FOLDER_FILES} JPEGs, SSD300 host chain: batch path "
+        f"{gen_batch:.2f} img/s, PIL {gen_pil:.2f} img/s; decoding is "
+        f"{100 * decode_share:.1f}% / {100 * pil_share:.1f}% of a batch's time; boxes equal, "
+        f"images within {image_diff} levels")
+    record = dict(launches=path_launches["colour_kernel"], max_abs_err=max(
+        fixtures_part["max_abs_err"], voc_part["max_abs_err"]), part=voc_part)
+    return lines, record
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; the port's main path runs on one")
@@ -2022,9 +2359,12 @@ def main():
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {kind}")
 
-    # 2. Build.
+    # 2. Build: the kernels and the nvJPEG decoder, their nvcc runs started
+    # together.
     t0 = time.perf_counter()
-    build.load_library()
+    with ThreadPoolExecutor(2) as pool:
+        for built in [pool.submit(build.load_library), pool.submit(build.load_nvjpeg_library)]:
+            built.result()
     build_s = time.perf_counter() - t0
     log(f"built {build.BUILD_DIR.name}/ with nvcc in {build_s:.2f} s")
     # 3. Kernel against plain, on the card.
@@ -2143,6 +2483,10 @@ def main():
     speed_lines, speed_launches = speed_workflows_phase(card)
     lines += speed_lines
 
+    # 14. The JPEG batch decoder: nvJPEG and the colour kernel against PIL.
+    jpeg_lines, colour = jpeg_phase(card)
+    lines += jpeg_lines
+
     for line in lines:
         print(json.dumps(line), flush=True)
 
@@ -2157,6 +2501,15 @@ def main():
                               **graph_launches,
                               **dp_launches, **eval_launches, host_chain=host_launches,
                               **workflow_launches, **ab_launches, **speed_launches),
+    ), dict(
+        name="jpeg_ycc_to_rgb", route="cuda", source="ssd_keras_torch/csrc/jpeg_color.cu",
+        replaces="ssd_keras_tpu/native/ssd_jpeg.cpp:72 (libjpeg's upsampling and colour "
+                 "conversion in the host decoder; no TPU kernel)",
+        launches=colour["launches"], max_abs_err=colour["max_abs_err"],
+        ms=colour["part"]["kernel_ms"]["median"], plain_ms=colour["part"]["plain_ms"]["median"],
+        bound_ms=colour["part"]["bound_ms"], bound_by=colour["part"]["bound_by"],
+        library_ms=None, library_note=JPEG_COLOR_LIBRARY_NOTE, shape=colour["part"]["shape"],
+        launches_by_path=dict(jpeg_generator=colour["launches"]),
     )]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,10 +14,11 @@ use, not with the module, so that the port imports without them;
 ``parse_xml`` reads the XML with the standard library's ``ElementTree``, not
 BeautifulSoup and lxml, which the machines the port is built for lack; the HDF5
 cache resizes with ``data.geometric.resize_image``, not OpenCV; and the
-JAX package's batch decode of JPEG files through its native threaded
-decoder (libjpeg) is left out, because the machines the port is built for
-have no libjpeg: files are read one by one through PIL, imported at the
-first read.
+batch decode of a lazy batch of JPEG files (``_get_images_batch``) runs on
+the generator's ``jpeg_device``: the card by default (nvJPEG), ``"cpu"``
+for the JAX package's libjpeg decoder, None for PIL one file at a time.
+Where the JAX package falls back to PIL when its decoder is missing or
+rejects a file, the port raises.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from ssd_keras_torch import native
 from ssd_keras_torch.data.geometric import resize_image
 from ssd_keras_torch.data.validation import BoxFilter
 
@@ -63,7 +65,10 @@ class DataGenerator:
 
     Ground truth is stored as one ``(k, 5)`` array per image with rows in
     ``labels_output_format`` order (default ``class_id, xmin, ymin, xmax,
-    ymax``).
+    ymax``). ``jpeg_device`` is where a lazy batch of JPEG files is decoded
+    (``_get_images_batch``): ``"cuda"`` (the default) or ``"cuda:N"`` on the
+    card through nvJPEG, ``"cpu"`` through libjpeg, None one file at a time
+    through PIL.
     """
 
     def __init__(
@@ -78,7 +83,9 @@ class DataGenerator:
         eval_neutral=None,
         labels_output_format=("class_id", "xmin", "ymin", "xmax", "ymax"),
         verbose: bool = True,
+        jpeg_device="cuda",
     ):
+        self.jpeg_device = jpeg_device
         self.labels_output_format = tuple(labels_output_format)
         self.labels_format = {name: i for i, name in enumerate(labels_output_format)}
 
@@ -468,7 +475,27 @@ class DataGenerator:
         return self._read_image(self.filenames[index])
 
     def _get_images_batch(self, indices) -> list:
-        return [self._get_image(int(i)) for i in indices]
+        """Fetch a batch of images, decoding JPEG files as one batch.
+
+        When reading lazily from disk and every file of the batch is a
+        ``.jpg``/``.jpeg``, the whole batch is decoded in one
+        ``native.decode_jpeg_batch`` call on ``jpeg_device`` (the card's
+        nvJPEG, or ``"cpu"``: libjpeg), which raises if that decoder is
+        missing or rejects a file. Non-JPEG files, mixed batches, in-memory
+        and HDF5-cached datasets, and ``jpeg_device=None`` use the per-image
+        path, PIL for files.
+        """
+        indices = [int(i) for i in indices]
+        if (self.jpeg_device is not None and self.images is None
+                and self.hdf5_dataset is None and self.filenames
+                and all(str(self.filenames[i]).lower().endswith((".jpg", ".jpeg"))
+                        for i in indices)):
+            buffers = []
+            for i in indices:
+                with open(self.filenames[i], "rb") as f:
+                    buffers.append(f.read())
+            return native.decode_jpeg_batch(buffers, device=self.jpeg_device)
+        return [self._get_image(i) for i in indices]
 
     def generate(
         self,

@@ -49,7 +49,7 @@ def main(argv=None) -> float:
                        compute_dtype=dtype_of(args), device=device)
 
     base = os.path.join(args.voc_root, f"VOC{args.year}")
-    dataset = DataGenerator(load_images_into_memory=False)
+    dataset = DataGenerator(load_images_into_memory=False, jpeg_device=device)
     dataset.parse_xml(
         [os.path.join(base, "JPEGImages")],
         [os.path.join(base, "ImageSets", "Main", f"{args.split}.txt")],

@@ -49,7 +49,7 @@ def main(argv=None):
     model, _ = ssd_300(SSDConfig.ssd300(n_classes=args.n_classes, dataset="coco"),
                        mode=args.mode, compute_dtype=dtype_of(args), device=device)
 
-    dataset = DataGenerator(load_images_into_memory=False)
+    dataset = DataGenerator(load_images_into_memory=False, jpeg_device=device)
     dataset.parse_json([args.images_dir], [args.annotations], ground_truth_available=False)
     _, classes_to_cats, _, _ = get_coco_category_maps(args.annotations)
     load_weights(model, args.weights, args.checkpoint)

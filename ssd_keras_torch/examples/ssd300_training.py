@@ -65,9 +65,9 @@ def lr_schedule(epoch: int) -> float:
     return 1e-5
 
 
-def voc_datasets(voc_root, splits_train, splits_val):
+def voc_datasets(voc_root, splits_train, splits_val, jpeg_device="cuda"):
     def build(split_list):
-        ds = DataGenerator(load_images_into_memory=False)
+        ds = DataGenerator(load_images_into_memory=False, jpeg_device=jpeg_device)
         images_dirs, sets, anns = [], [], []
         for year, split in split_list:
             base = os.path.join(voc_root, f"VOC{year}")
@@ -162,6 +162,7 @@ def main(argv=None):
         args.voc_root,
         splits_train=[("2007", "trainval"), ("2012", "trainval")],
         splits_val=[("2007", "test")],
+        jpeg_device=device,
     )
     print(f"train: {train_ds.get_dataset_size()}  val: {val_ds.get_dataset_size()}")
     validation_steps = max(1, val_ds.get_dataset_size() // args.batch_size)

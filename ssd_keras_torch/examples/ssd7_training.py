@@ -50,7 +50,7 @@ def main(argv=None):
     encoder = SSDInputEncoder(config, predictor_sizes, device=device)
 
     input_format = ["image_name", "xmin", "xmax", "ymin", "ymax", "class_id"]
-    train_ds = DataGenerator(load_images_into_memory=False)
+    train_ds = DataGenerator(load_images_into_memory=False, jpeg_device=device)
     train_ds.parse_csv(args.images_dir, args.train_labels, input_format)
     print(f"train images: {train_ds.get_dataset_size()}")
 
@@ -73,7 +73,7 @@ def main(argv=None):
 
     val_gen, validation_steps = None, 0
     if args.val_labels:
-        val_ds = DataGenerator(load_images_into_memory=False)
+        val_ds = DataGenerator(load_images_into_memory=False, jpeg_device=device)
         val_ds.parse_csv(args.images_dir, args.val_labels, input_format)
         val_gen = val_ds.generate(
             batch_size=args.batch_size,

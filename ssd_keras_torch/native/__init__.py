@@ -11,8 +11,12 @@ load raises ``RuntimeError`` with the compiler's message. The NumPy loops
 the JAX package falls back to are the plain versions here, called by name
 (``decoder.greedy_nms_numpy``, ``Evaluator.match_predictions_numpy``).
 
-The JAX package's threaded JPEG decoder (``ssd_jpeg.cpp``) is not ported:
-it links libjpeg, which the machines the port is built for do not have.
+The JAX package's threaded JPEG batch decoder is ported as ``jpeg.py``:
+``decode_jpeg_batch(buffers, n_threads=0, device=None)`` decodes on the card
+through nvJPEG (``nvjpeg_decode.cu``, built by ``kernels/build.py``), or, with
+``device="cpu"``, through the port's copy of ``ssd_jpeg.cpp`` (libjpeg, built
+here by g++ only where ``jpeglib.h`` is found). ``jpeg_available(device)``
+says whether that device's decoder builds.
 """
 
 from __future__ import annotations
@@ -25,39 +29,48 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 
+from ssd_keras_torch.native.jpeg import decode_jpeg_batch, jpeg_available
+
 __all__ = ["load_library", "greedy_nms_indices", "match_predictions_class", "iou_matrix",
-           "gxx_command", "SOURCE", "BUILD_DIR"]
+           "gxx_command", "decode_jpeg_batch", "jpeg_available", "SOURCE", "BUILD_DIR"]
 
 SOURCE = Path(__file__).resolve().parent / "ssd_host_ops.cpp"
 BUILD_DIR = SOURCE.parent.parent / "_build"
 
 
-def gxx_command(gxx: str, source: Path, output: Path) -> List[str]:
-    """The g++ command line that builds ``source`` into ``output``."""
-    return [gxx, "-O3", "-shared", "-fPIC", "-o", str(output), str(source)]
+def gxx_command(gxx: str, source: Path, output: Path,
+                libraries: Sequence[str] = ()) -> List[str]:
+    """The g++ command line that builds ``source`` into ``output``, linked
+    with ``libraries``."""
+    return [gxx, "-O3", "-shared", "-fPIC", "-o", str(output), str(source), *libraries]
 
 
-def _library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libssd_host_ops_{digest}.so"
+def _library_path(source: Path = SOURCE) -> Path:
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{source.stem}_{digest}.so"
 
 
-def _build(lib: Path) -> None:
+def _gxx() -> str:
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found on PATH: the host ops of ssd_keras_torch "
                            "cannot be built.")
+    return gxx
+
+
+def _build(lib: Path, source: Path = SOURCE, libraries: Sequence[str] = ()) -> None:
+    gxx = _gxx()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # Build to a private name, then rename, as kernels/build.py does.
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run(gxx_command(gxx, SOURCE, Path(tmp)), capture_output=True,
-                              text=True, timeout=300)
+        proc = subprocess.run(gxx_command(gxx, source, Path(tmp), libraries),
+                              capture_output=True, text=True, timeout=300)
         if proc.returncode != 0:
             raise RuntimeError(f"g++ failed ({proc.returncode}) building {lib.name}:\n"
                                f"{proc.stdout}\n{proc.stderr}")

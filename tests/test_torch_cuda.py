@@ -8,8 +8,10 @@ sharing the card), and the evaluation path (SSD512 against the CPU, the
 evaluator on the card against the CPU, the COCO tools' lanes, the host C++
 built with g++), the predictor on gray and RGBA frames (no PIL) and through
 its per-shape CUDA graphs (equal to the eager path, NMS launches counted on
-replay, dropped on a weight reload, a scratch of each graph's own), and the
-host-chain Trainer.
+replay, dropped on a weight reload, a scratch of each graph's own), the
+host-chain Trainer, and the JPEG batch decoder (nvJPEG and the colour
+kernel against PIL and the kernel's plain version, errors with the file's
+index, calls from several threads, ``DataGenerator``'s batch path).
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither JAX nor the JAX package, so it also runs on a machine with
@@ -622,3 +624,97 @@ def test_host_ops_build_with_gxx_and_equal_the_numpy_loops():
     for border in ("half", "include", "exclude"):
         np.testing.assert_array_equal(decoder.greedy_nms(rows, 0.45, border),
                                       decoder.greedy_nms_numpy(rows, 0.45, border))
+
+
+def test_nvjpeg_decode_holds_to_pil(cuda):
+    """``chip_smoke.py`` phase 14's files as one batch on the card: each
+    within phase 14's tolerances of PIL's decode, CMYK through PIL with
+    PIL's shape, one nvJPEG call and one colour kernel launch."""
+    from chip_smoke import held_to_pil, jpeg_fixtures, pil_decode
+    from ssd_keras_torch.kernels import jpeg_color as color_kernel
+    from ssd_keras_torch.native import jpeg
+
+    files = jpeg_fixtures()
+    before = (jpeg.launches, color_kernel.launches)
+    got = jpeg.decode_jpeg_batch(list(files.values()))
+    assert (jpeg.launches - before[0], color_kernel.launches - before[1]) == (1, 1)
+    for (name, data), image in zip(files.items(), got):
+        held_to_pil(name, image, pil_decode(data))
+    assert got[list(files).index("cmyk")].shape[-1] == 4
+
+
+def test_colour_kernel_equals_plain_on_nvjpeg_planes(cuda):
+    from chip_smoke import jpeg_fixtures
+    from ssd_keras_torch.kernels import jpeg_color as color_kernel
+    from ssd_keras_torch.native import jpeg
+    from ssd_keras_torch.ops import jpeg_color
+
+    planes, layout, out_bytes, files = jpeg.decode_planes(list(jpeg_fixtures().values()))
+    assert planes.is_cuda and len(files) == len(layout) == 17  # all but the CMYK file
+    got = color_kernel.ycc_to_rgb(planes, layout, out_bytes)
+    assert torch.equal(got, jpeg_color.ycc_to_rgb(planes, layout, out_bytes))
+
+
+def test_nvjpeg_decode_raises_with_the_file_index(cuda):
+    from chip_smoke import jpeg_fixtures
+    from ssd_keras_torch.native import jpeg
+
+    good = next(iter(jpeg_fixtures().values()))
+    for bad in (b"not a jpeg", good[:100]):
+        with pytest.raises(ValueError, match="image 1"):
+            jpeg.decode_jpeg_batch([good, bad, good])
+    assert jpeg.decode_jpeg_batch([good])[0].shape == (375, 500, 3)  # still decodes
+
+
+def test_nvjpeg_decode_from_several_threads(cuda):
+    """Calls from 8 threads at once, batches of other sizes each: every
+    answer equals the same call made alone."""
+    import threading
+
+    from chip_smoke import jpeg_fixtures
+    from ssd_keras_torch.native import jpeg
+
+    files = list(jpeg_fixtures().values())
+    batches = [files[k:k + 1 + k % 5] for k in range(8)]
+    want = [jpeg.decode_jpeg_batch(b) for b in batches]
+    got = [None] * len(batches)
+
+    def work(k):
+        for _ in range(3):
+            got[k] = jpeg.decode_jpeg_batch(batches[k])
+
+    threads = [threading.Thread(target=work, args=(k,)) for k in range(len(batches))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    for g, w in zip(got, want):
+        assert len(g) == len(w) and all(np.array_equal(a, b) for a, b in zip(g, w))
+
+
+def test_generator_decodes_jpeg_batches_on_card(cuda, tmp_path):
+    """A lazy JPEG ``DataGenerator`` decodes on the card by default, one
+    nvJPEG call a batch, within phase 14's tolerances of the PIL path."""
+    from chip_smoke import JPEG_COLOR_MAX, encode_jpeg, jpeg_scene
+    from ssd_keras_torch.data import DataGenerator
+    from ssd_keras_torch.native import jpeg
+
+    files, labels = [], []
+    for k in range(6):
+        image, boxes = jpeg_scene(k, 251, 333)
+        path = tmp_path / f"{k}.jpg"
+        path.write_bytes(encode_jpeg(image, quality=90))
+        files.append(str(path))
+        labels.append(boxes)
+    out = {}
+    for device in ("cuda", None):
+        gen = DataGenerator(filenames=files, labels=labels, jpeg_device=device)
+        before = jpeg.launches
+        batches = gen.generate(batch_size=3, shuffle=False, returns=["processed_images"])
+        out[device] = [next(batches)[0] for _ in range(2)]
+        out[str(device) + "_calls"] = jpeg.launches - before
+    assert out["cuda_calls"] == 2 and out["None_calls"] == 0
+    for a, b in zip(out["cuda"], out[None]):
+        assert a.shape == b.shape == (3, 251, 333, 3)
+        assert np.abs(a.astype(np.int16) - b).max() <= JPEG_COLOR_MAX

@@ -58,12 +58,17 @@ def test_import_needs_neither_jax_nor_the_jax_package():
         "        'ssd_keras_torch.examples.coco_decode_bench',\n"
         "        'ssd_keras_torch.examples.profile_breakdown',\n"
         "        'ssd_keras_torch.examples.serving_trunk_bench',\n"
-        "        'ssd_keras_torch.examples.streaming_bench'} <= set(sys.modules)\n"
+        "        'ssd_keras_torch.examples.streaming_bench',\n"
+        "        'ssd_keras_torch.native.jpeg', 'ssd_keras_torch.kernels.jpeg_color',\n"
+        "        'ssd_keras_torch.ops.jpeg_color'} <= set(sys.modules)\n"
         "bad = {'jax', 'flax', 'optax', 'orbax', 'ssd_keras_tpu', 'h5py', 'PIL', 'triton',\n"
         "       'cv2', 'bs4', 'lxml'}\n"
         "bad &= set(sys.modules)\n"
         "from ssd_keras_torch import native\n"
         "assert native.load_library.cache_info().currsize == 0  # nothing built at import\n"
+        "from ssd_keras_torch.kernels import build\n"
+        "assert build.load_nvjpeg_library.cache_info().currsize == 0\n"
+        "assert native.jpeg._libjpeg.cache_info().currsize == 0\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
@@ -170,8 +175,10 @@ def test_wrapper_has_no_fallback_for_other_devices():
 
 def test_kernel_source_is_where_the_build_looks():
     assert (build.CSRC_DIR / "nms.cu").is_file()
-    assert [p.name for p in build._sources()] == ["nms.cu"]
+    assert [p.name for p in build._sources()] == ["jpeg_color.cu", "nms.cu"]
     assert os.path.basename(build.BUILD_DIR) == "_build"
+    # The nvJPEG decoder is a library of its own, outside the kernels' glob.
+    assert build.NVJPEG_SOURCE.is_file() and build.NVJPEG_SOURCE.parent.name == "native"
 
 
 _BUILDERS = {
@@ -295,3 +302,21 @@ def test_examples_default_to_the_card_and_raise_without_one(example, argv, tmp_p
     with pytest.raises(RuntimeError, match="no CUDA device"):
         module.main(argv)
     assert list(tmp_path.iterdir()) == []
+
+
+@pytest.mark.parametrize("module", ["native/jpeg.py", "native/__init__.py",
+                                    "kernels/jpeg_color.py", "ops/jpeg_color.py",
+                                    "kernels/build.py", "data/datasets.py"])
+def test_jpeg_modules_import_neither_jax_nor_the_jax_package(module):
+    """The JPEG decoder's modules name no import of ``jax``, ``flax`` or
+    ``ssd_keras_tpu``, at the top or inside a function."""
+    import ast
+
+    tree = ast.parse((REPO / "ssd_keras_torch" / module).read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {alias.name.split(".")[0] for alias in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module.split(".")[0])
+    assert not names & {"jax", "flax", "ssd_keras_tpu"}, names
