@@ -173,6 +173,15 @@ Phases, in order; the first failure raises and the script exits non-zero:
    takes; the batch path launches nvJPEG and the colour kernel once a
    batch.
 
+15. The public surface: the packages ``data``, ``parallel``, ``utils``,
+   ``kernels`` and ``ops`` export the JAX package's names (SURFACE_EXPORTS);
+   ``ops.nms.pairwise_iou_corners`` (K = 400 boxes, zero-area and repeated
+   ones among them, border_delta -1, 0, +1) and
+   ``ops.nms.select_top_candidates`` (8732 scores with planted ties, k =
+   400) on the card equal the same calls on CPU copies (SURFACE_IOU_TOL;
+   indices exact); ``train.fit_generator(trainer=...)`` takes 2 SSD7 steps
+   at 64x64 on the card with a finite loss.
+
 It prints JSON lines (timings, then the kernels line), then as its last line
 ``{"ok": true, "device": {...}}``. With no CUDA device it raises before
 printing any result. Imports torch, numpy and ssd_keras_torch, and PIL in
@@ -2345,6 +2354,85 @@ def jpeg_phase(card):
     return lines, record
 
 
+# Phase 15: the names each package re-exports from the JAX package's
+# ``__all__`` (``tests/test_torch_surface.py`` holds the whole surface).
+SURFACE_EXPORTS = {
+    "ssd_keras_torch.data": ["device_aug", "DeviceSSDAugmentation", "PrefetchGenerator",
+                             "prefetch", "StreamingDeviceInput", "host_decode_batches"],
+    "ssd_keras_torch.parallel": ["make_mesh", "shard_batch", "replicate",
+                                 "initialize_distributed", "global_batch_from_local"],
+    "ssd_keras_torch.utils": ["benchmark_fps", "device_sync", "trace"],
+    "ssd_keras_torch.kernels": ["greedy_nms_mask_batched"],
+    "ssd_keras_torch.ops": ["anchors", "boxes", "matching", "nms"],
+}
+SURFACE_IOU_TOL = 1e-6
+
+
+def surface_phase(device, card):
+    """Phase 15. Returns its line."""
+    import importlib
+
+    from ssd_keras_torch.ops.nms import pairwise_iou_corners, select_top_candidates
+
+    for package, names in SURFACE_EXPORTS.items():
+        module = importlib.import_module(package)
+        missing = [n for n in names if not hasattr(module, n)
+                   or n not in getattr(module, "__all__", names)]
+        if missing:
+            raise AssertionError(f"{package} does not export {missing}")
+    from ssd_keras_torch.data import prefetch
+
+    if list(prefetch(iter(range(5)), buffer_size=2)) != list(range(5)):
+        raise AssertionError("ssd_keras_torch.data.prefetch is not the prefetch function")
+
+    rng = np.random.RandomState(SEED + 15)
+    xy = rng.uniform(0, 250, (400, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(1, 60, (400, 2))], axis=1).astype(np.float32)
+    boxes[10:20, 2] = boxes[10:20, 0]  # zero width
+    boxes[20:30] = boxes[40]           # repeated
+    iou_err = 0.0
+    for border_delta in (-1.0, 0.0, 1.0):
+        got = pairwise_iou_corners(torch.from_numpy(boxes).to(device), border_delta).cpu()
+        want = pairwise_iou_corners(torch.from_numpy(boxes), border_delta)
+        iou_err = max(iou_err, float((got - want).abs().max()))
+        if iou_err > SURFACE_IOU_TOL or not torch.equal(got[want == 0], want[want == 0]):
+            raise AssertionError(f"pairwise_iou_corners card vs CPU: {iou_err:.3g}")
+    scores = np.round(rng.uniform(0, 1, 8732), 2).astype(np.float32)  # ~100 values: ties
+    anchors = rng.uniform(0, 300, (8732, 4)).astype(np.float32)
+    got = select_top_candidates(torch.from_numpy(scores).to(device),
+                                torch.from_numpy(anchors).to(device), 400)
+    want = select_top_candidates(torch.from_numpy(scores), torch.from_numpy(anchors), 400)
+    if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+        raise AssertionError("select_top_candidates card vs CPU: indices differ")
+
+    model, _ = ssd_7(SSDConfig.ssd7(n_classes=3, img_height=64, img_width=64),
+                     compute_dtype=torch.float32, device=device,
+                     generator=torch.Generator().manual_seed(SEED))
+    opt = T.sgd_with_momentum(model.parameters(), 1e-3, clipnorm=5.0)
+    trainer = T.Trainer(model, opt, T.make_train_step(model, opt, SSDLoss(), l2_reg=5e-4))
+
+    def batches():
+        while True:
+            y = np.zeros((4, 340, 16), np.float32)
+            y[:, :, 0] = 1.0
+            y[:, 40, 0], y[:, 40, 2] = 0.0, 1.0
+            yield rng.uniform(0, 255, (4, 64, 64, 3)).astype(np.float32), y
+
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        history = T.fit_generator(batches(), trainer=trainer, steps_per_epoch=1, epochs=2,
+                                  verbose=False)
+    fit_s = time.perf_counter() - t0
+    if len(history["loss"]) != 2 or not np.isfinite(history["loss"]).all() or trainer.step != 2:
+        raise AssertionError(f"train.fit_generator on the card: {history}")
+    log(f"phase 15: the five packages export the JAX names; pairwise_iou_corners card vs "
+        f"CPU {iou_err:.3g}, select_top_candidates indices equal; fit_generator SSD7 losses "
+        f"{history['loss']}")
+    return dict(metric="surface", packages=sorted(SURFACE_EXPORTS), iou_max_abs_err=iou_err,
+                top_candidates_equal=True, fit_generator_losses=history["loss"],
+                fit_generator_s=fit_s, card=card)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; the port's main path runs on one")
@@ -2486,6 +2574,10 @@ def main():
     # 14. The JPEG batch decoder: nvJPEG and the colour kernel against PIL.
     jpeg_lines, colour = jpeg_phase(card)
     lines += jpeg_lines
+
+    # 15. The public surface: the packages' exports and the functions that
+    # closed the gap to the JAX package's names.
+    lines.append(surface_phase(device, card))
 
     for line in lines:
         print(json.dumps(line), flush=True)

@@ -9,7 +9,8 @@ augmentation chain that makes the training batches:
 * arm ``host``: the reference's chain (``data/chains.py``
   ``SSDDataAugmentation``: photometric sequence, expand, the patch-sampling
   crop trials, flip), NumPy on the host through ``DataGenerator.generate``
-  and ``data/prefetch.prefetch``;
+  and ``data/prefetch.prefetch``, or with ``--host-workers N`` in N
+  processes, each over its own rows;
 * arm ``device``: ``DeviceSSDAugmentation`` on the model's device, over the
   train split resident there.
 
@@ -21,6 +22,7 @@ SGD momentum 0.9, clip 5, L2 5e-4, a warmup to the peak LR, x0.1 drops at
 ``aug_chain_ab.md`` with the final delta (acceptance: |delta| <= 0.02).
 
 Usage: python -m ssd_keras_torch.examples.aug_chain_ab --steps 8000 [--arms device]
+       [--host-workers N]
 """
 
 from __future__ import annotations
@@ -78,15 +80,14 @@ def device_batches(args, encoder, data, device):
         yield imgs, encoder.encode_padded(lbls, nn)
 
 
-def host_batches(args, encoder, data, device):
-    """The host arm: the reference chain in NumPy, a prefetch thread ahead,
-    then the upload and the encode on the device."""
-    train_images, train_labels = data[:2]
+def chain_batches(args, max_gt_boxes, images, labels, seed):
+    """The reference chain over ``images``, seeded: uint8 batches with their
+    padded labels and counts."""
     # The chain draws from the global generators: seeded, the arm repeats.
-    np.random.seed(args.seed)
-    random.seed(args.seed)
-    train_ds = SynthVOC(args.train_images, args.size, split="train", seed=args.seed)
-    gen = train_ds.as_data_generator(train_images, train_labels).generate(
+    np.random.seed(seed)
+    random.seed(seed)
+    train_ds = SynthVOC(len(images), args.size, split="train", seed=args.seed)
+    gen = train_ds.as_data_generator(images, labels).generate(
         batch_size=args.batch,
         shuffle=True,
         transformations=[SSDDataAugmentation(args.size, args.size)],
@@ -94,16 +95,51 @@ def host_batches(args, encoder, data, device):
         returns=["processed_images", "processed_labels"],
         keep_images_without_gt=True,
     )
+    for imgs, lbls in gen:
+        # uint8 upload (the augmented image is float32 in [0, 255];
+        # rounding is the quantization every decoded JPEG has)
+        u8 = np.clip(np.rint(np.asarray(imgs)), 0, 255).astype(np.uint8)
+        padded, counts = pad_labels(list(lbls), max_gt_boxes, truncate=True)
+        yield u8, padded, counts
 
-    def produce():
-        for imgs, lbls in gen:
-            # uint8 upload (the augmented image is float32 in [0, 255];
-            # rounding is the quantization every decoded JPEG has)
-            u8 = np.clip(np.rint(np.asarray(imgs)), 0, 255).astype(np.uint8)
-            padded, counts = pad_labels(list(lbls), encoder.max_gt_boxes, truncate=True)
-            yield u8, padded, counts
 
-    batches = prefetch(produce(), buffer_size=4)
+class ChainShards(torch.utils.data.IterableDataset):
+    """``--host-workers N``: DataLoader worker ``w`` renders the train rows
+    ``w::N`` itself (a SynthVOC image is a function of its seed, split and
+    index, so they equal the parent's) and runs the chain over them, seeded
+    ``seed * 1000 + w``. The loader takes the workers' batches in turn, so
+    the arm repeats for a given N."""
+
+    def __init__(self, args, max_gt_boxes):
+        self.args, self.max_gt_boxes = args, max_gt_boxes
+
+    def rows(self, worker, n_workers):
+        ds = SynthVOC(self.args.train_images, self.args.size, split="train", seed=self.args.seed)
+        rendered = [ds.render(i) for i in range(worker, self.args.train_images, n_workers)]
+        return np.stack([r[0] for r in rendered]), [r[1] for r in rendered]
+
+    def __iter__(self):
+        w = torch.utils.data.get_worker_info()
+        images, labels = self.rows(w.id, w.num_workers)
+        return chain_batches(self.args, self.max_gt_boxes, images, labels,
+                             self.args.seed * 1000 + w.id)
+
+
+def host_batches(args, encoder, data, device):
+    """The host arm: the reference chain in NumPy, a prefetch thread ahead
+    (or ``--host-workers`` processes), then the upload and the encode on the
+    device."""
+    train_images, train_labels = data[:2]
+    if args.host_workers > 1:
+        batches = iter(torch.utils.data.DataLoader(
+            ChainShards(args, encoder.max_gt_boxes), batch_size=None,
+            num_workers=args.host_workers, prefetch_factor=2, multiprocessing_context="spawn"))
+        for u8, padded, counts in batches:
+            y = encoder.encode_padded(padded.to(device), counts.to(device))
+            yield u8.to(device).float(), y
+        return
+    batches = prefetch(chain_batches(args, encoder.max_gt_boxes, train_images, train_labels,
+                                     args.seed), buffer_size=4)
     try:
         for u8, padded, counts in batches:
             y = encoder.encode_padded(torch.from_numpy(padded).to(device),
@@ -218,6 +254,9 @@ def main(argv=None) -> dict:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--model", default="ssd300", choices=("ssd300", "ssd512"))
     p.add_argument("--arms", default="device,host")
+    p.add_argument("--host-workers", type=int, default=1,
+                   help="processes running the host arm's chain, each over its own rows "
+                        "(1: one prefetch thread over all rows, as the JAX script)")
     p.add_argument("--save-ckpt", default="",
                    help="directory to save each arm's trained weights into "
                         "({arm}_seed{seed}/ckpt_1.pt); empty = don't save")

@@ -24,8 +24,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["greedy_nms_mask", "iou_suppression_mask", "greedy_keep_from_mask",
-           "lane_bounds", "mask_words", "words_read"]
+__all__ = ["pairwise_iou_corners", "greedy_nms_mask", "select_top_candidates",
+           "iou_suppression_mask", "greedy_keep_from_mask", "lane_bounds", "mask_words",
+           "words_read"]
 
 _WORD = 64
 # Bit b of an int64 word as a Python int; bit 63 is the sign bit.
@@ -63,12 +64,32 @@ def _iou(ax1, ay1, ax2, ay2, a_area, bx1, by1, bx2, by2, b_area, d):
     ih = (torch.minimum(ay2, by2) - torch.maximum(ay1, by1) + d).clamp_min(0.0)
     inter = iw * ih
     union = a_area + b_area - inter
-    return torch.where(union > 0, inter / union, 0.0)
+    positive = union > 0  # a safe denominator: finite gradients at zero-area pairs
+    return torch.where(positive, inter / torch.where(positive, union, 1.0), 0.0)
 
 
 def _corners_and_area(boxes: torch.Tensor, d: float):
     x1, y1, x2, y2 = boxes.unbind(-1)
     return x1, y1, x2, y2, (x2 - x1 + d) * (y2 - y1 + d)
+
+
+def pairwise_iou_corners(boxes: torch.Tensor, border_delta: float = 0.0) -> torch.Tensor:
+    """(K, K) IoU of every pair of (K, 4) corner boxes, 0 where the union is
+    not positive (``ssd_keras_tpu/ops/nms.py:pairwise_iou_corners``).
+    ``border_delta`` is the reference's ``border_pixels`` convention ('half'
+    0, 'include' +1, 'exclude' -1). The gradient is finite at zero-area
+    pairs too."""
+    corners = _corners_and_area(boxes, border_delta)
+    return _iou(*(c[:, None] for c in corners), *(c[None, :] for c in corners), border_delta)
+
+
+def select_top_candidates(scores: torch.Tensor, boxes: torch.Tensor, k: int):
+    """The ``k`` highest of (N,) ``scores`` with their (N, 4) ``boxes``:
+    ``(top_scores, boxes[idx], idx)``. Equal scores keep the lower index
+    first, as ``jax.lax.top_k`` does (a stable descending sort)."""
+    top_scores, idx = torch.sort(scores, descending=True, stable=True)
+    top_scores, idx = top_scores[:k], idx[:k]
+    return top_scores, boxes[idx], idx
 
 
 def greedy_nms_mask(

@@ -61,6 +61,7 @@ __all__ = [
     "EarlyStopping",
     "ReduceLROnPlateau",
     "Trainer",
+    "fit_generator",
 ]
 
 Schedule = Callable[[int], float]
@@ -544,3 +545,9 @@ class Trainer:
                 break
         return history
 
+
+def fit_generator(*args, trainer: Trainer, **kwargs):
+    """``trainer.fit_generator(*args, **kwargs)``: the functional form of the
+    reference notebooks' entry point (``ssd_keras_tpu/train.py:
+    fit_generator``)."""
+    return trainer.fit_generator(*args, **kwargs)

@@ -5,7 +5,8 @@ scripts, on the CPU.
   the JAX script imports) equals optax's schedule at every step and its
   updates; its markdown record and printed lines equal the JAX script's on
   the same arm results; ``main`` trains both arms from one init at a tiny
-  size and writes the curves and the record.
+  size and writes the curves and the record; ``--host-workers`` spreads
+  the host chain over processes, each over its own rows.
 * ``bf16_vs_f32_ssd300``: the schedule and optimizer the JAX script builds
   (captured from its ``main``) equal the port's at every step; the record's
   arithmetic on the JAX package's own record reproduces that record;
@@ -128,6 +129,35 @@ def test_aug_chain_ab_record_and_lines_equal_the_jax_scripts(tmp_path, monkeypat
     assert port_md == jax_md
     assert port["delta"] == pytest.approx(results[0]["final_mAP_sample"]
                                           - results[1]["final_mAP_sample"])
+
+
+def test_aug_chain_ab_host_workers_take_their_rows_in_turn():
+    """``--host-workers 2``: each spawned worker renders the rows ``w::2`` of
+    the split the parent renders, and the loader's batches are worker 0's
+    and worker 1's in turn, each the chain over its rows seeded
+    ``seed * 1000 + w``, as ``chain_batches`` makes them in one process."""
+    from ssd_keras_torch.data import SynthVOC
+
+    args = Namespace(seed=3, size=64, batch=2, train_images=8)
+    images, labels = SynthVOC(8, 64, split="train", seed=3).materialize()
+    shards = aug_chain_ab.ChainShards(args, 16)
+    for w in range(2):
+        rows, row_labels = shards.rows(w, 2)
+        assert np.array_equal(rows, images[w::2])
+        assert all(np.array_equal(a, b) for a, b in zip(row_labels, labels[w::2]))
+    loader = iter(torch.utils.data.DataLoader(
+        shards, batch_size=None, num_workers=2, multiprocessing_context="spawn", timeout=120))
+    got = [next(loader) for _ in range(4)]
+    del loader
+    per_worker = []
+    for w in range(2):
+        shard = aug_chain_ab.chain_batches(args, 16, images[w::2], labels[w::2], 3 * 1000 + w)
+        per_worker.append([next(shard) for _ in range(2)])
+    want = [per_worker[i % 2][i // 2] for i in range(4)]
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert np.array_equal(a.numpy(), b)
+    assert got[0][0].dtype == torch.uint8 and got[0][0].shape == (2, 64, 64, 3)
 
 
 def test_aug_chain_ab_main_trains_both_arms_from_one_init(tmp_path, capsys):

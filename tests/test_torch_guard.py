@@ -108,6 +108,44 @@ def test_host_chains_run_with_opencv_pil_and_jax_absent():
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
 
+def _build_dir_listing():
+    build_dir = REPO / "ssd_keras_torch" / "_build"
+    if not build_dir.is_dir():
+        return None
+    return sorted((p.name, p.stat().st_mtime_ns) for p in build_dir.iterdir())
+
+
+def test_package_reexports_import_without_jax_and_build_nothing():
+    """The five packages that re-export the JAX package's names (``data``,
+    ``parallel``, ``utils``, ``kernels``, ``ops``) import in a fresh
+    interpreter with ``jax`` and the JAX package blocked, load no library
+    and leave ``_build/`` as it was."""
+    code = (
+        "import importlib.abc, sys\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in {'jax', 'jaxlib', 'flax', 'ssd_keras_tpu'}:\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "from ssd_keras_torch.data import prefetch, DeviceSSDAugmentation, device_aug\n"
+        "from ssd_keras_torch.data import StreamingDeviceInput, host_decode_batches\n"
+        "from ssd_keras_torch.parallel import make_mesh, shard_batch, replicate\n"
+        "from ssd_keras_torch.parallel import initialize_distributed, global_batch_from_local\n"
+        "from ssd_keras_torch.utils import benchmark_fps, device_sync, trace\n"
+        "from ssd_keras_torch.kernels import greedy_nms_mask_batched, build, nms, jpeg_color\n"
+        "from ssd_keras_torch.ops import anchors, boxes, matching\n"
+        "from ssd_keras_torch import native\n"
+        "assert callable(prefetch) and nms.launches == 0\n"
+        "assert build.load_library.cache_info().currsize == 0\n"
+        "assert build.load_nvjpeg_library.cache_info().currsize == 0\n"
+        "assert native.load_library.cache_info().currsize == 0\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in {'jax', 'ssd_keras_tpu'}]\n"
+    )
+    before = _build_dir_listing()
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+    assert _build_dir_listing() == before
+
+
 def test_nvcc_command_targets_hopper_with_exact_float_math(tmp_path):
     cmd = build.nvcc_command("nvcc", [tmp_path / "a.cu", tmp_path / "b.cu"], tmp_path / "lib.so")
     assert "arch=compute_90a,code=sm_90a" in cmd
