@@ -97,8 +97,17 @@ Phases, in order; the first failure raises and the script exits non-zero:
    the unfolded models (f32 y_pred within FOLD_TOL, SSD7's detections
    matched), and their bf16 batch-8 times beside the unfolded ones.
 
-10. Host-chain training, the reference's own way of training, NumPy on the
-   host (no OpenCV): (a) SSD300 VOC at full width from a SynthVOC
+10. Host-chain training, the reference's own way of training, on the host
+   (no OpenCV; its resize, warp and colour conversions in the host C++ of
+   ``native.image_ops``, the rest NumPy). First each native image op against
+   its NumPy plain version, bit for bit (``np.array_equal``), at the shapes
+   of ``tests/test_torch_image_ops.py`` and the chain's own sizes (a
+   1200x1200 float32 crop to 300x300 in all five modes, 300 -> 512 uint8
+   linear, 300x300 uint8 HSV both ways, a 300x300 uint8 scale warp), those
+   timed against their plain versions (median of 5), and the chain's time by
+   transform through either (the same images and labels from the same
+   seeds): the ``host_ops`` line with the native calls per chain image.
+   (a) SSD300 VOC at full width from a SynthVOC
    ``DataGenerator`` of 256 images at 300x300 through ``generate(batch_size=
    32, shuffle=True, transformations=[SSDDataAugmentation(300, 300)],
    label_encoder=SSDInputEncoder(..., device="cuda"))`` into
@@ -218,6 +227,8 @@ from ssd_keras_torch import (
 from ssd_keras_torch import decoder
 from ssd_keras_torch import train as T
 from ssd_keras_torch.data import DataGenerator, SynthVOC
+from ssd_keras_torch import native
+from ssd_keras_torch.data import geometric, photometric
 from ssd_keras_torch.data.chains import DataAugmentationConstantInputSize, SSDDataAugmentation
 from ssd_keras_torch.data.device_aug import DeviceSSDAugmentation, batch_seed, geometry_from_draws
 from ssd_keras_torch.data.streaming import StreamingDeviceInput, host_decode_batches
@@ -348,6 +359,39 @@ HOST_MAX_GT = 8
 HOST_EPOCHS = 2
 HOST_STEPS_PER_EPOCH = 4
 HOST_TIMED_BATCHES = 3
+# Phase 10's host image ops: the fixtures of tests/test_torch_image_ops.py
+# ((source, destination) sizes of the resizes, the warps' maps on a 37x53
+# image, the colour conversions' widths around the 32-pixel vector block),
+# and the chain's own sizes, timed: a crop of the 4x expanded canvas to
+# 300x300, the SSD512 evaluator's 300 -> 512 resize, the colour round trip.
+IMAGE_OP_RESIZES = {
+    "up": ((37, 53), (90, 120)),
+    "down_odd": ((120, 90), (41, 17)),
+    "mixed": ((45, 60), (45, 128)),
+    "exact_2x": ((64, 64), (32, 32)),
+    "area_3x": ((60, 63), (20, 21)),
+    "area_4x": ((48, 40), (12, 10)),
+    "area_non_integer": ((128, 96), (43, 32)),
+    "from_one_pixel": ((1, 1), (5, 7)),
+    "to_one_pixel": ((9, 11), (1, 1)),
+    "odd_transpose": ((33, 47), (47, 33)),
+}
+IMAGE_OP_MODES = {"nearest": geometric.INTER_NEAREST, "linear": geometric.INTER_LINEAR,
+                  "cubic": geometric.INTER_CUBIC, "area": geometric.INTER_AREA,
+                  "lanczos4": geometric.INTER_LANCZOS4}
+IMAGE_OP_WARP_SHAPE = (37, 53)
+IMAGE_OP_WARPS = {
+    "translate": np.float32([[1, 0, 7], [0, 1, -5]]),
+    "scale": geometric.rotation_matrix_2d((26.5, 18.5), 0, 1.37),
+    "right_angle": geometric.rotation_matrix_2d((26.5, 18.5), 90, 1),
+    "rotation": geometric.rotation_matrix_2d((10.3, 7.1), 33.3, 0.8),
+}
+IMAGE_OP_BORDERS = {"zero": 0, "coloured": (10, 200, 30)}
+IMAGE_OP_CVT = (("RGB", "HSV"), ("HSV", "RGB"), ("RGB", "GRAY"))
+IMAGE_OP_CVT_WIDTHS = (31, 32, 33, 65)
+HOST_OP_REPEATS = 5
+CHAIN_SPLIT_IMAGES = 64
+CHAIN_TRANSFORMS = ("photometric", "expand", "random_crop", "random_flip", "resize")
 SSD7_BATCH = 16
 STREAM_BATCHES = 4
 
@@ -375,7 +419,8 @@ BF16_AB_ARGS = ["--steps", "200", "--batch", "8", "--train-images", "256",
 # 6e-5 of the loss; a wrong cast or a different batch errs by far more.
 BF16_STEP0_RTOL = 0.01
 # (b) 40 steps at batch 8 on 64 / 32 images: the host chain runs at
-# ~17 img/s on the card's machine (phase 10).
+# ~93 img/s on the card's machine (phase 10), and the arms share the
+# script's time limit.
 AUG_AB_ARGS = ["--steps", "40", "--batch", "8", "--train-images", "64", "--val-images", "32",
                "--eval-every", "40", "--warmup", "10"]
 # (c) SSD300 trained by the SynthVOC recipe for 1000 steps on 1000 images,
@@ -1709,12 +1754,159 @@ def check_host_batch(name, images, boxes, batch, size):
         raise AssertionError(f"{name}: a batch without a box")
 
 
+def image_op_noise(rng, shape, dtype):
+    """Inputs of the image-op checks: uint8 over its range; floats over
+    [-20, 280), so that the clamps and the negative taps are reached."""
+    if dtype == np.uint8:
+        return rng.randint(0, 256, shape).astype(np.uint8)
+    return (rng.rand(*shape) * 300 - 20).astype(dtype)
+
+
+def same_image(name, got, want):
+    if got.dtype != want.dtype or got.shape != want.shape or not np.array_equal(got, want):
+        raise AssertionError(f"host image op {name}: native != plain")
+
+
+def host_op_checks():
+    """Each native image op against its plain version at the tests' fixture
+    shapes, bit for bit; raises at the first difference. Returns the number
+    of comparisons."""
+    rng = np.random.RandomState(SEED)
+    n = 0
+    for case, (src, dst) in IMAGE_OP_RESIZES.items():
+        for mode_name, mode in IMAGE_OP_MODES.items():
+            for dtype in (np.uint8, np.float32, np.float64):
+                for channels in (1, 3):
+                    image = image_op_noise(rng, (*src, channels), dtype)
+                    same_image(f"resize {case} {mode_name} {np.dtype(dtype).name} x{channels}",
+                               geometric.resize_image(image, *dst, mode),
+                               geometric.resize_image_numpy(image, *dst, mode))
+                    n += 1
+    for width in IMAGE_OP_CVT_WIDTHS:
+        for dtype in (np.uint8, np.float32):
+            for current, to in IMAGE_OP_CVT:
+                image = rng.randint(0, 256, (5, width, 3)).astype(dtype)
+                if current == "HSV":
+                    image = photometric.cvt_color_numpy(image, "RGB", "HSV")
+                same_image(f"cvt_color {current}->{to} {np.dtype(dtype).name} width {width}",
+                           photometric.cvt_color(image, current, to),
+                           photometric.cvt_color_numpy(image, current, to))
+                n += 1
+    h, w = IMAGE_OP_WARP_SHAPE
+    for name, m in IMAGE_OP_WARPS.items():
+        for dtype in (np.uint8, np.float32, np.float64):
+            for channels in (1, 3):
+                for border_name, border in IMAGE_OP_BORDERS.items():
+                    image = image_op_noise(rng, (h, w, channels), dtype)
+                    for dsize in ((w, h), (h + 4, w - 3)):
+                        same_image(f"warp {name} {np.dtype(dtype).name} x{channels} "
+                                   f"{border_name} {dsize}",
+                                   geometric.warp_affine(image, m, dsize, border),
+                                   geometric.warp_affine_numpy(image, m, dsize, border))
+                        n += 1
+    return n
+
+
+def host_op_timings():
+    """The ops at the chain's sizes: checked bit for bit, then timed against
+    their plain versions, each call in turn with its plain one (host clock,
+    median of HOST_OP_REPEATS)."""
+    rng = np.random.RandomState(SEED + 1)
+    crop = (rng.rand(1200, 1200, 3) * 255).astype(np.float32)
+    small = rng.randint(0, 256, (300, 300, 3)).astype(np.uint8)
+    hsv = photometric.cvt_color_numpy(small, "RGB", "HSV")
+    m = geometric.rotation_matrix_2d((150, 150), 0, 1.3)
+    ops = {}
+    for mode_name, mode in IMAGE_OP_MODES.items():
+        ops[f"resize_f32_1200x1200_to_300_{mode_name}"] = (
+            lambda fn, mode=mode: fn(crop, 300, 300, mode),
+            geometric.resize_image, geometric.resize_image_numpy)
+    ops["resize_u8_300_to_512_linear"] = (lambda fn: fn(small, 512, 512),
+                                          geometric.resize_image, geometric.resize_image_numpy)
+    ops["cvt_u8_300_rgb_to_hsv"] = (lambda fn: fn(small, "RGB", "HSV"),
+                                    photometric.cvt_color, photometric.cvt_color_numpy)
+    ops["cvt_u8_300_hsv_to_rgb"] = (lambda fn: fn(hsv, "HSV", "RGB"),
+                                    photometric.cvt_color, photometric.cvt_color_numpy)
+    ops["warp_u8_300_scale"] = (lambda fn: fn(small, m, (300, 300)),
+                                geometric.warp_affine, geometric.warp_affine_numpy)
+    out = {}
+    for name, (call, fn, plain) in ops.items():
+        same_image(name, call(fn), call(plain))
+        runs, plain_runs = [], []
+        for _ in range(HOST_OP_REPEATS):
+            for f, into in ((fn, runs), (plain, plain_runs)):
+                t0 = time.perf_counter()
+                call(f)
+                into.append(1e3 * (time.perf_counter() - t0))
+        out[name] = dict(ms=statistics.median(runs), plain_ms=statistics.median(plain_runs),
+                         ms_runs=runs, plain_ms_runs=plain_runs)
+    return out
+
+
+class _TimedTransform:
+    """A chain transform that adds its seconds to ``seconds[name]``."""
+
+    def __init__(self, transform, seconds, name):
+        self.transform, self.seconds, self.name = transform, seconds, name
+
+    def __call__(self, image, labels):
+        t0 = time.perf_counter()
+        out = self.transform(image, labels)
+        self.seconds[self.name] += time.perf_counter() - t0
+        return out
+
+
+def chain_split(images, labels):
+    """Milliseconds per image in each transform of SSDDataAugmentation(300,
+    300), through the native ops and through the plain functions patched
+    in, from the same seeds; raises unless both give the same images and
+    labels."""
+    plain = ((geometric, "resize_image", geometric.resize_image_numpy),
+             (geometric, "warp_affine", geometric.warp_affine_numpy),
+             (photometric, "cvt_color", photometric.cvt_color_numpy))
+    split, outputs = {}, {}
+    for route in ("native", "plain"):
+        saved = [(module, name, getattr(module, name)) for module, name, _ in plain]
+        if route == "plain":
+            for module, name, fn in plain:
+                setattr(module, name, fn)
+        try:
+            aug = SSDDataAugmentation(300, 300)
+            seconds = dict.fromkeys(CHAIN_TRANSFORMS, 0.0)
+            aug.sequence = [_TimedTransform(t, seconds, name)
+                            for t, name in zip(aug.sequence, CHAIN_TRANSFORMS)]
+            out = []
+            t0 = time.perf_counter()
+            for i, (image, boxes) in enumerate(zip(images, labels)):
+                np.random.seed(SEED + i)
+                random.seed(SEED + i)
+                out.append(aug(image.copy(), boxes.copy()))
+            total = time.perf_counter() - t0
+        finally:
+            for module, name, fn in saved:
+                setattr(module, name, fn)
+        split[route] = dict(img_per_s=len(images) / total, ms_per_image=1e3 * total / len(images),
+                            by_transform_ms={k: 1e3 * v / len(images) for k, v in seconds.items()})
+        outputs[route] = out
+    for i, ((got, got_boxes), (want, want_boxes)) in enumerate(zip(*outputs.values())):
+        same_image(f"SSDDataAugmentation image {i}", got, want)
+        if not np.array_equal(got_boxes, want_boxes):
+            raise AssertionError(f"SSDDataAugmentation image {i}: boxes differ by route")
+    return split
+
+
 def host_chain_phase(state, device, card):
     """Phase 10. Returns (timing lines, its NMS launches: none)."""
     cfg = SSDConfig.ssd300()
     sizes = ssd300_predictor_sizes(300, 300)
     synth = SynthVOC(HOST_IMAGES, image_size=300, split="train", seed=SEED)
     dataset = synth.as_data_generator()
+
+    n_checked = host_op_checks()
+    op_ms = host_op_timings()
+    log(f"host image ops: native == plain bit for bit in "
+        f"{n_checked} fixture comparisons and {len(op_ms)} at the chain's sizes; "
+        + ", ".join(f"{k} {v['ms']:.2f} ms (plain {v['plain_ms']:.2f})" for k, v in op_ms.items()))
     enc = SSDInputEncoder(cfg, sizes, max_gt_boxes=HOST_MAX_GT, device=device)
 
     def host_chain(seed):
@@ -1744,10 +1936,17 @@ def host_chain_phase(state, device, card):
     # The generator alone: augment, stack and encode on the card.
     gen = host_chain(SEED)
     next(gen)
+    calls = native.image_ops_calls
+    calls.update(dict.fromkeys(calls, 0))
     t0 = time.perf_counter()
     for _ in range(HOST_TIMED_BATCHES):
         next(gen)
     gen_s = time.perf_counter() - t0
+    chain_images = HOST_TIMED_BATCHES * HOST_BATCH
+    calls_per_image = {op: n / chain_images for op, n in calls.items()}
+    # An image the chain leaves at 300x300 is copied, not resized.
+    if not (calls["resize"] > 0 and calls["cvt_color"] > 0):
+        raise AssertionError(f"the host chain did not go through the native image ops: {calls}")
 
     # Training through Trainer.fit_generator from the host chain.
     trainer = bf16_trainer(state, device)
@@ -1834,7 +2033,22 @@ def host_chain_phase(state, device, card):
     if host_launches:
         raise AssertionError("host-chain training launched the NMS kernel")
 
+    split = chain_split(dataset.images[:CHAIN_SPLIT_IMAGES],
+                        [b.astype(np.float64) for b in dataset.labels[:CHAIN_SPLIT_IMAGES]])
+    log("SSDDataAugmentation by transform, ms an image: "
+        + "; ".join(f"{route} {v['ms_per_image']:.2f} "
+                    + str({k: round(t, 2) for k, t in v["by_transform_ms"].items()})
+                    for route, v in split.items()))
+
     lines = [
+        dict(metric="host_ops", source="ssd_keras_torch/native/ssd_image_ops.cpp",
+             plain="data.geometric.resize_image_numpy, warp_affine_numpy, "
+                   "data.photometric.cvt_color_numpy",
+             checked_bit_equal=n_checked + len(op_ms), ops=op_ms,
+             calls_per_chain_image=calls_per_image, chain_images=chain_images,
+             chain_split=dict(images=CHAIN_SPLIT_IMAGES, **split),
+             timer=f"host clock, median of {HOST_OP_REPEATS}, each call in turn with its plain one",
+             card=card),
         dict(metric="host_chain_img_per_s", chain="SSDDataAugmentation(300, 300)",
              path="DataGenerator.generate: augment + stack + encode on the card", batch=HOST_BATCH,
              img_per_s=HOST_TIMED_BATCHES * HOST_BATCH / gen_s, seconds=gen_s,

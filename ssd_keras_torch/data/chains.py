@@ -11,7 +11,9 @@ the reference's four chain modules:
 * :class:`DataAugmentationSatellite`.
 
 Each chain is built from the port's ``patch_sampling`` and ``validation``
-(vendored) and its NumPy ``photometric`` and ``geometric`` transforms, and
+(vendored) and its ``photometric`` and ``geometric`` transforms (whose
+resize, warp and colour conversions run in the host C++ of
+``native.image_ops``), and
 draws from the global ``np.random`` and ``random`` in the JAX package's
 order, so one seed gives the JAX package's boxes bit for bit. Pixels follow
 the transforms' own agreement with OpenCV (see ``photometric`` and

@@ -13,7 +13,8 @@ PyTorch port. Four changes: ``h5py`` and ``PIL`` are imported at their first
 use, not with the module, so that the port imports without them;
 ``parse_xml`` reads the XML with the standard library's ``ElementTree``, not
 BeautifulSoup and lxml, which the machines the port is built for lack; the HDF5
-cache resizes with ``data.geometric.resize_image``, not OpenCV; and the
+cache resizes with ``data.geometric.resize_image`` (OpenCV's arithmetic in
+the host C++ of ``native.image_ops``), not OpenCV; and the
 batch decode of a lazy batch of JPEG files (``_get_images_batch``) runs on
 the generator's ``jpeg_device``: the card by default (nvJPEG), ``"cpu"``
 for the JAX package's libjpeg decoder, None for PIL one file at a time.

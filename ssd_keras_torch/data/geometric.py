@@ -4,7 +4,12 @@ host-side, without OpenCV.
 Port of ``ssd_keras_tpu/data/geometric.py``, which resizes with
 ``cv2.resize`` and warps with ``cv2.warpAffine``. The port does not use
 OpenCV (the machines that run it need not have it), so this module computes
-in NumPy what OpenCV 5 computes:
+what OpenCV 5 computes. Python works out each resize's tap indices and
+weights; the per-pixel loops run in host C++ (``native.image_ops``, built by
+g++ at first use) for uint8, float32 and float64 images, and in NumPy for
+another float type. The NumPy versions, :func:`resize_image_numpy` and
+:func:`warp_affine_numpy`, are the plain versions: the C++ equals them bit
+for bit, and the tests hold both to OpenCV as follows.
 
 :func:`resize_image` (``cv2.resize``), for uint8 and float images:
 
@@ -53,6 +58,7 @@ import random as _pyrandom
 import numpy as np
 
 from ssd_keras_torch.data.validation import DEFAULT_LABELS_FORMAT
+from ssd_keras_torch.native import image_ops
 
 __all__ = [
     "Resize",
@@ -66,7 +72,9 @@ __all__ = [
     "Rotate",
     "RandomRotate",
     "resize_image",
+    "resize_image_numpy",
     "warp_affine",
+    "warp_affine_numpy",
     "rotation_matrix_2d",
     "INTER_NEAREST",
     "INTER_LINEAR",
@@ -125,12 +133,14 @@ def _fixed_weights(f: np.ndarray):
     return w0, w1
 
 
-def _linear(image: np.ndarray, xtaps, ytaps) -> np.ndarray:
+def _linear(image: np.ndarray, xtaps, ytaps, native: bool) -> np.ndarray:
     x0, x1, fx = xtaps
     y0, y1, fy = ytaps
     if image.dtype == np.uint8:
         a0, a1 = _fixed_weights(fx)
         b0, b1 = _fixed_weights(fy)
+        if native:
+            return image_ops.resize_linear_u8(image, (x0, x1, a0, a1), (y0, y1, b0, b1))
         src = image.astype(np.int32)
         rows = src[:, x0] * a0[None, :, None] + src[:, x1] * a1[None, :, None]
         top = (b0[:, None, None] * (rows[y0] >> 4)) >> 16
@@ -139,14 +149,19 @@ def _linear(image: np.ndarray, xtaps, ytaps) -> np.ndarray:
     dt = image.dtype
     fx, fy = fx.astype(dt), fy.astype(dt)
     one = dt.type(1.0)
+    if native:
+        return image_ops.resize_separable(image, np.stack([x0, x1], 1), np.stack([one - fx, fx], 1),
+                                          np.stack([y0, y1], 1), np.stack([one - fy, fy], 1))
     rows = image[:, x0] * (one - fx)[None, :, None] + image[:, x1] * fx[None, :, None]
     return (rows[y0] * (one - fy)[:, None, None] + rows[y1] * fy[:, None, None]).astype(dt)
 
 
-def _halve(image: np.ndarray) -> np.ndarray:
+def _halve(image: np.ndarray, native: bool) -> np.ndarray:
     """An exact 2x reduction: the mean of each 2x2 block, as OpenCV's fast
     area resize computes it."""
     h, w = image.shape[0] // 2 * 2, image.shape[1] // 2 * 2
+    if native:
+        return image_ops.resize_block_mean(image, h // 2, w // 2, 2, 2, halve=True)
     q = image[:h, :w]
     if image.dtype == np.uint8:
         q = q.astype(np.int32)
@@ -157,10 +172,12 @@ def _halve(image: np.ndarray) -> np.ndarray:
             ).astype(image.dtype)
 
 
-def _nearest(image: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+def _nearest(image: np.ndarray, out_h: int, out_w: int, native: bool) -> np.ndarray:
     h, w = image.shape[:2]
     xs = np.minimum(np.floor(np.arange(out_w) * (1.0 / (out_w / w))).astype(np.int64), w - 1)
     ys = np.minimum(np.floor(np.arange(out_h) * (1.0 / (out_h / h))).astype(np.int64), h - 1)
+    if native:
+        return image_ops.resize_nearest(image, ys, xs)
     return image[ys][:, xs]
 
 
@@ -197,14 +214,16 @@ def _area_table(src: int, dst: int, scale: float):
     return index, weight
 
 
-def _area_shrink(image: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+def _area_shrink(image: np.ndarray, out_h: int, out_w: int, native: bool) -> np.ndarray:
     h, w = image.shape[:2]
     scale_x, scale_y = 1.0 / (out_w / w), 1.0 / (out_h / h)
     ix, iy = int(round(scale_x)), int(round(scale_y))
     eps = np.finfo(np.float64).eps
     if abs(scale_x - ix) < eps and abs(scale_y - iy) < eps:  # OpenCV's fast area
         if ix == 2 and iy == 2:
-            return _halve(image)
+            return _halve(image, native)
+        if native:
+            return image_ops.resize_block_mean(image, out_h, out_w, iy, ix, halve=False)
         blocks = image[: out_h * iy, : out_w * ix].reshape(out_h, iy, out_w, ix, -1)
         if image.dtype == np.uint8:
             total = blocks.astype(np.int64).sum(axis=(1, 3)).astype(_F32)
@@ -215,9 +234,12 @@ def _area_shrink(image: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
                 acc = (acc + blocks[:, a, :, b]).astype(image.dtype)
         return (acc * image.dtype.type(1.0 / (ix * iy))).astype(image.dtype)
     acc_t = _F32 if image.dtype == np.uint8 else image.dtype.type
-    src = image.astype(acc_t)
     xi, xw = _area_table(w, out_w, scale_x)
     yi, yw = _area_table(h, out_h, scale_y)
+    if native:
+        return image_ops.resize_separable(image, xi, xw.astype(acc_t), yi, yw.astype(acc_t),
+                                          x_from_zero=True)
+    src = image.astype(acc_t)
     rows = np.zeros((h, out_w, image.shape[2]), acc_t)
     for j in range(xi.shape[1]):  # OpenCV's order of accumulation
         rows = (rows + src[:, xi[:, j]] * xw[None, :, j, None].astype(acc_t)).astype(acc_t)
@@ -291,13 +313,18 @@ def _dense(index: np.ndarray, weights: np.ndarray, src: int) -> np.ndarray:
     return out
 
 
-def _separable(image: np.ndarray, out_h: int, out_w: int, ksize: int) -> np.ndarray:
+def _separable(image: np.ndarray, out_h: int, out_w: int, ksize: int,
+               native: bool) -> np.ndarray:
     h, w = image.shape[:2]
     xi, xw = _kernel_taps(w, out_w, ksize)
     yi, yw = _kernel_taps(h, out_h, ksize)
     if image.dtype == np.uint8 and ksize == 8:
         # OpenCV's fixed point. Every sum is an integer below 2**53, so two
-        # float64 matrix products give it exactly.
+        # float64 matrix products give it exactly (the C++ sums in int64).
+        if native:
+            return image_ops.resize_lanczos_u8(
+                image, xi, np.rint(xw * _F32(_COEF_SCALE)).astype(np.int32),
+                yi, np.rint(yw * _F32(_COEF_SCALE)).astype(np.int32))
         wx = _dense(xi, np.rint(xw * _F32(_COEF_SCALE)), w)
         wy = _dense(yi, np.rint(yw * _F32(_COEF_SCALE)), h)
         c = image.shape[2]
@@ -306,8 +333,10 @@ def _separable(image: np.ndarray, out_h: int, out_w: int, ksize: int) -> np.ndar
         total = total.astype(np.int64).transpose(0, 2, 1)
         return np.clip((total + (1 << 21)) >> 22, 0, 255).astype(np.uint8)
     acc_t = _F32 if image.dtype == np.uint8 else image.dtype.type
-    src = image.astype(acc_t)
     xw, yw = xw.astype(acc_t), yw.astype(acc_t)
+    if native:
+        return image_ops.resize_separable(image, xi, xw, yi, yw)
+    src = image.astype(acc_t)
     rows = (src[:, xi[:, 0]] * xw[None, :, 0, None]).astype(acc_t)
     for j in range(1, ksize):
         rows = (rows + src[:, xi[:, j]] * xw[None, :, j, None]).astype(acc_t)
@@ -322,38 +351,59 @@ def _separable(image: np.ndarray, out_h: int, out_w: int, ksize: int) -> np.ndar
 _MODES = (INTER_NEAREST, INTER_LINEAR, INTER_CUBIC, INTER_AREA, INTER_LANCZOS4)
 
 
-def resize_image(image: np.ndarray, height: int, width: int,
-                 interpolation: int = INTER_LINEAR) -> np.ndarray:
-    """``cv2.resize(image, (width, height), interpolation=interpolation)``
-    for an (H, W) or (H, W, C) uint8 or float image; see the module
-    docstring for what is exact. An (H, W, 1) image comes back (h, w), as
-    from OpenCV."""
-    image = np.asarray(image)
+def _resize(image: np.ndarray, height: int, width: int, interpolation: int,
+            native: bool) -> np.ndarray:
+    """``resize_image`` through the native C++ (``native``) or NumPy."""
     if interpolation not in _MODES:
         raise ValueError(f"unknown interpolation mode {interpolation}")
     if image.dtype != np.uint8 and image.dtype.kind != "f":
         raise NotImplementedError(f"resize of {image.dtype} images is not ported: uint8 or float")
     squeeze = image.ndim == 2 or image.shape[2] == 1
     planes = image.reshape(image.shape[0], image.shape[1], -1)
+    if native:
+        planes = np.ascontiguousarray(planes)
     h, w = planes.shape[:2]
     if (h, w) == (height, width):
         out = planes.copy()
     elif interpolation == INTER_NEAREST:
-        out = _nearest(planes, height, width)
+        out = _nearest(planes, height, width, native)
     elif interpolation == INTER_CUBIC:
-        out = _separable(planes, height, width, 4)
+        out = _separable(planes, height, width, 4, native)
     elif interpolation == INTER_LANCZOS4:
-        out = _separable(planes, height, width, 8)
+        out = _separable(planes, height, width, 8, native)
     elif interpolation == INTER_AREA and h >= height and w >= width:
-        out = _area_shrink(planes, height, width)
+        out = _area_shrink(planes, height, width, native)
     elif interpolation == INTER_AREA:
         out = _linear(planes, _area_linear_taps(w, width, True),
-                      _area_linear_taps(h, height, False))
+                      _area_linear_taps(h, height, False), native)
     elif h == 2 * height and w == 2 * width:
-        out = _halve(planes)
+        out = _halve(planes, native)
     else:
-        out = _linear(planes, _linear_taps(w, width, True), _linear_taps(h, height, False))
+        out = _linear(planes, _linear_taps(w, width, True), _linear_taps(h, height, False),
+                      native)
     return out[..., 0] if squeeze else out
+
+
+def resize_image(image: np.ndarray, height: int, width: int,
+                 interpolation: int = INTER_LINEAR) -> np.ndarray:
+    """``cv2.resize(image, (width, height), interpolation=interpolation)``
+    for an (H, W) or (H, W, C) uint8 or float image; see the module
+    docstring for what is exact. An (H, W, 1) image comes back (h, w), as
+    from OpenCV.
+
+    uint8, float32 and float64 images go through the host C++
+    (``native.image_ops``); another float type (float16) through NumPy
+    (:func:`resize_image_numpy`). Both give the same result; a failed g++
+    build raises."""
+    image = np.asarray(image)
+    return _resize(image, height, width, interpolation, image.dtype in image_ops.DTYPES)
+
+
+def resize_image_numpy(image: np.ndarray, height: int, width: int,
+                       interpolation: int = INTER_LINEAR) -> np.ndarray:
+    """:func:`resize_image` in NumPy alone: the plain version the native
+    C++ is held to, bit for bit."""
+    return _resize(np.asarray(image), height, width, interpolation, False)
 
 
 # --------------------------------------------------------------------------- #
@@ -390,17 +440,13 @@ def _invert_affine(m) -> np.ndarray:
 
 
 def _fma(a, b, c, dtype):
-    """``a * b + c`` with one rounding to ``dtype`` (float32: the product
-    of two float32 values is exact in float64)."""
-    return (np.asarray(a, np.float64) * b + c).astype(dtype)
+    """``a * b + c`` in float64, rounded to ``dtype`` at the end (float32:
+    the product of two float32 values is exact in float64)."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64) + c).astype(dtype)
 
 
-def warp_affine(image: np.ndarray, m, dsize, border_value=0) -> np.ndarray:
-    """``cv2.warpAffine(image, m, dsize, flags=INTER_LINEAR,
-    borderMode=BORDER_CONSTANT, borderValue=border_value)`` for an (H, W) or
-    (H, W, C) uint8 or float image; ``dsize`` is (width, height), as in
-    OpenCV. See the module docstring for what is exact."""
-    image = np.asarray(image)
+def _warp(image: np.ndarray, m, dsize, border_value, native: bool) -> np.ndarray:
+    """``warp_affine`` through the native C++ (``native``) or NumPy."""
     if image.dtype != np.uint8 and image.dtype.kind != "f":
         raise NotImplementedError(f"warp of {image.dtype} images is not ported: uint8 or float")
     squeeze = image.ndim == 2
@@ -409,6 +455,14 @@ def warp_affine(image: np.ndarray, m, dsize, border_value=0) -> np.ndarray:
     out_w, out_h = int(dsize[0]), int(dsize[1])
     work = _F32 if image.dtype == np.uint8 else image.dtype.type
     inv = _invert_affine(m).astype(work)
+    # OpenCV's border is a 4-value scalar padded with zeros.
+    values = np.atleast_1d(np.asarray(border_value, np.float64))
+    border = np.zeros(max(c, 4), np.float64)
+    border[: values.size] = values
+    border = border[:c].astype(work)
+    if native:
+        out = image_ops.warp_affine(np.ascontiguousarray(planes), inv, border, out_h, out_w)
+        return out[..., 0] if squeeze else out
     xs = np.arange(out_w, dtype=work)[None, :]
     ys = np.arange(out_h, dtype=work)[:, None]
     x = _fma(inv[0], xs, (inv[1] * ys + inv[2]).astype(work), work)
@@ -417,11 +471,6 @@ def warp_affine(image: np.ndarray, m, dsize, border_value=0) -> np.ndarray:
     sy = np.floor(y).astype(np.int64)
     ax = (x - sx).astype(work)[..., None]
     ay = (y - sy).astype(work)[..., None]
-    # OpenCV's border is a 4-value scalar padded with zeros.
-    values = np.atleast_1d(np.asarray(border_value, np.float64))
-    border = np.zeros(max(c, 4), np.float64)
-    border[: values.size] = values
-    border = border[:c].astype(work)
     src = planes.astype(work)
 
     def pixel(yy, xx):
@@ -439,6 +488,26 @@ def warp_affine(image: np.ndarray, m, dsize, border_value=0) -> np.ndarray:
     else:
         out = out.astype(image.dtype)
     return out[..., 0] if squeeze else out
+
+
+def warp_affine(image: np.ndarray, m, dsize, border_value=0) -> np.ndarray:
+    """``cv2.warpAffine(image, m, dsize, flags=INTER_LINEAR,
+    borderMode=BORDER_CONSTANT, borderValue=border_value)`` for an (H, W) or
+    (H, W, C) uint8 or float image; ``dsize`` is (width, height), as in
+    OpenCV. See the module docstring for what is exact.
+
+    uint8, float32 and float64 images go through the host C++
+    (``native.image_ops``); another float type (float16) through NumPy
+    (:func:`warp_affine_numpy`). Both give the same result; a failed g++
+    build raises."""
+    image = np.asarray(image)
+    return _warp(image, m, dsize, border_value, image.dtype in image_ops.DTYPES)
+
+
+def warp_affine_numpy(image: np.ndarray, m, dsize, border_value=0) -> np.ndarray:
+    """:func:`warp_affine` in NumPy alone: the plain version the native C++
+    is held to, bit for bit."""
+    return _warp(np.asarray(image), m, dsize, border_value, False)
 
 
 # --------------------------------------------------------------------------- #

@@ -8,7 +8,10 @@ then the parameter), so that one seed gives one sequence on both sides.
 
 The JAX package calls OpenCV for four operations; the port does not use
 OpenCV (the machines that run it need not have it), so this module computes
-in NumPy what OpenCV 5 computes:
+what OpenCV 5 computes. :func:`cvt_color` runs in host C++
+(``native.image_ops``, built by g++ at first use), equal bit for bit to its
+plain NumPy version :func:`cvt_color_numpy`; the LUT and ``equalize_hist``
+are NumPy:
 
 * :func:`cvt_color` ``RGB->HSV`` on uint8: OpenCV's integer path, with H in
   [0, 180) and its 12-bit fixed-point division tables. Exact.
@@ -33,6 +36,7 @@ from __future__ import annotations
 import numpy as np
 
 from ssd_keras_torch.data.geometric import _fma
+from ssd_keras_torch.native import image_ops
 
 __all__ = [
     "ConvertColor",
@@ -53,6 +57,7 @@ __all__ = [
     "ChannelSwap",
     "RandomChannelSwap",
     "cvt_color",
+    "cvt_color_numpy",
     "equalize_hist",
 ]
 
@@ -157,15 +162,28 @@ _CONVERSIONS = {
 }
 
 
-def cvt_color(image: np.ndarray, current: str, to: str) -> np.ndarray:
-    """``cv2.cvtColor`` between RGB, HSV and GRAY for an (H, W, 3) uint8 or
-    float32 image (see the module docstring for the ranges and what is
-    exact)."""
+def _checked(image) -> np.ndarray:
     image = np.asarray(image)
     if image.dtype not in (np.uint8, np.float32):
         raise TypeError(f"cvt_color takes uint8 or float32 images, got {image.dtype}")
     if image.ndim != 3 or image.shape[2] != 3:
         raise ValueError(f"cvt_color takes (H, W, 3) images, got shape {image.shape}")
+    return image
+
+
+def cvt_color(image: np.ndarray, current: str, to: str) -> np.ndarray:
+    """``cv2.cvtColor`` between RGB, HSV and GRAY for an (H, W, 3) uint8 or
+    float32 image (see the module docstring for the ranges and what is
+    exact), through the host C++ (``native.image_ops``). Equal bit for bit
+    to :func:`cvt_color_numpy`; a failed g++ build raises."""
+    image = _checked(image)
+    return image_ops.cvt_color(np.ascontiguousarray(image), current, to, _SDIV, _HDIV)
+
+
+def cvt_color_numpy(image: np.ndarray, current: str, to: str) -> np.ndarray:
+    """:func:`cvt_color` in NumPy alone: the plain version the native C++
+    is held to, bit for bit."""
+    image = _checked(image)
     u8, f32 = _CONVERSIONS[(current, to)]
     return u8(image) if image.dtype == np.uint8 else f32(image)
 

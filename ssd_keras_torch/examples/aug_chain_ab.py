@@ -8,7 +8,9 @@ augmentation chain that makes the training batches:
 
 * arm ``host``: the reference's chain (``data/chains.py``
   ``SSDDataAugmentation``: photometric sequence, expand, the patch-sampling
-  crop trials, flip), NumPy on the host through ``DataGenerator.generate``
+  crop trials, flip), on the host (NumPy, its resize and colour
+  conversions in the host C++ of ``native.image_ops``) through
+  ``DataGenerator.generate``
   and ``data/prefetch.prefetch``, or with ``--host-workers N`` in N
   processes, each over its own rows;
 * arm ``device``: ``DeviceSSDAugmentation`` on the model's device, over the
@@ -126,7 +128,7 @@ class ChainShards(torch.utils.data.IterableDataset):
 
 
 def host_batches(args, encoder, data, device):
-    """The host arm: the reference chain in NumPy, a prefetch thread ahead
+    """The host arm: the reference chain on the host, a prefetch thread ahead
     (or ``--host-workers`` processes), then the upload and the encode on the
     device."""
     train_images, train_labels = data[:2]

@@ -17,6 +17,13 @@ through nvJPEG (``nvjpeg_decode.cu``, built by ``kernels/build.py``), or, with
 ``device="cpu"``, through the port's copy of ``ssd_jpeg.cpp`` (libjpeg, built
 here by g++ only where ``jpeglib.h`` is found). ``jpeg_available(device)``
 says whether that device's decoder builds.
+
+The augmentation chains' OpenCV arithmetic (resize, the affine warp, the
+colour conversions) runs in ``ssd_image_ops.cpp`` through ``image_ops.py``,
+built by the same g++ rule with ``-ffp-contract=off -fno-tree-vectorize``
+(``image_ops.IMAGE_OPS_FLAGS``); ``image_ops_calls``
+counts its calls by op. Each built library is named by a hash of its source
+and of the g++ command's options.
 """
 
 from __future__ import annotations
@@ -33,24 +40,34 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from ssd_keras_torch.native.image_ops import image_ops_calls, load_image_ops
 from ssd_keras_torch.native.jpeg import decode_jpeg_batch, jpeg_available
 
 __all__ = ["load_library", "greedy_nms_indices", "match_predictions_class", "iou_matrix",
-           "gxx_command", "decode_jpeg_batch", "jpeg_available", "SOURCE", "BUILD_DIR"]
+           "gxx_command", "decode_jpeg_batch", "jpeg_available", "image_ops_calls",
+           "load_image_ops", "SOURCE", "BUILD_DIR"]
 
 SOURCE = Path(__file__).resolve().parent / "ssd_host_ops.cpp"
 BUILD_DIR = SOURCE.parent.parent / "_build"
 
 
-def gxx_command(gxx: str, source: Path, output: Path,
-                libraries: Sequence[str] = ()) -> List[str]:
-    """The g++ command line that builds ``source`` into ``output``, linked
-    with ``libraries``."""
-    return [gxx, "-O3", "-shared", "-fPIC", "-o", str(output), str(source), *libraries]
+_GXX_FLAGS = ("-O3", "-shared", "-fPIC")
 
 
-def _library_path(source: Path = SOURCE) -> Path:
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+def gxx_command(gxx: str, source: Path, output: Path, libraries: Sequence[str] = (),
+                flags: Sequence[str] = ()) -> List[str]:
+    """The g++ command line that builds ``source`` into ``output`` with the
+    extra compiler ``flags``, linked with ``libraries``."""
+    return [gxx, *_GXX_FLAGS, *flags, "-o", str(output), str(source), *libraries]
+
+
+def _library_path(source: Path = SOURCE, libraries: Sequence[str] = (),
+                  flags: Sequence[str] = ()) -> Path:
+    """Where the library built from ``source`` lives: named by a hash of the
+    source's bytes and of every option of the g++ command, so that a changed
+    source or a changed flag builds anew."""
+    options = "\0".join([*_GXX_FLAGS, *flags, *libraries]).encode()
+    digest = hashlib.sha256(source.read_bytes() + b"\0" + options).hexdigest()[:16]
     return BUILD_DIR / f"lib{source.stem}_{digest}.so"
 
 
@@ -62,14 +79,15 @@ def _gxx() -> str:
     return gxx
 
 
-def _build(lib: Path, source: Path = SOURCE, libraries: Sequence[str] = ()) -> None:
+def _build(lib: Path, source: Path = SOURCE, libraries: Sequence[str] = (),
+           flags: Sequence[str] = ()) -> None:
     gxx = _gxx()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # Build to a private name, then rename, as kernels/build.py does.
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run(gxx_command(gxx, source, Path(tmp), libraries),
+        proc = subprocess.run(gxx_command(gxx, source, Path(tmp), libraries, flags),
                               capture_output=True, text=True, timeout=300)
         if proc.returncode != 0:
             raise RuntimeError(f"g++ failed ({proc.returncode}) building {lib.name}:\n"

@@ -58,6 +58,7 @@ __all__ = ["decode_jpeg_batch", "decode_planes", "jpeg_available", "launches", "
 JPEG_SOURCE = Path(__file__).resolve().parent / "ssd_jpeg.cpp"
 # The header g++ must find for the host decoder to be built.
 JPEG_HEADER = "jpeglib.h"
+JPEG_LIBRARIES = ("-ljpeg", "-lpthread")
 
 # Incremented once per ``nvjpegDecodeBatched`` call (one a batch): a run can
 # show that its images went through the card's decoder.
@@ -103,7 +104,7 @@ def _has_header(gxx: str, header: str) -> bool:
 def _build_libjpeg() -> ctypes.CDLL:
     from ssd_keras_torch import native
 
-    path = native._library_path(JPEG_SOURCE)
+    path = native._library_path(JPEG_SOURCE, JPEG_LIBRARIES)
     if not path.exists():
         gxx = native._gxx()
         if not _has_header(gxx, JPEG_HEADER):
@@ -111,7 +112,7 @@ def _build_libjpeg() -> ctypes.CDLL:
                 f"{JPEG_HEADER} not found by {gxx}: libjpeg's headers are missing, so the "
                 "host JPEG decoder of ssd_keras_torch cannot be built (decode on the card "
                 "with device='cuda', or read files through PIL).")
-        native._build(path, JPEG_SOURCE, ["-ljpeg", "-lpthread"])
+        native._build(path, JPEG_SOURCE, JPEG_LIBRARIES)
     try:
         lib = ctypes.CDLL(str(path))
     except OSError as e:

@@ -178,11 +178,12 @@ def test_cpu_decoder_builds_with_libjpeg(libjpeg, tmp_path, monkeypatch):
         assert jpeg.jpeg_available("cpu")
     finally:
         jpeg._libjpeg.cache_clear()
-    (gxx, source, output, libraries), = seen
+    (gxx, source, output, libraries, flags), = seen
     assert source == jpeg.JPEG_SOURCE and list(libraries) == ["-ljpeg", "-lpthread"]
+    assert list(flags) == []
     assert output.parent == tmp_path / "_build" and not output.exists()
     assert [p.name for p in (tmp_path / "_build").glob("*.so")] == [
-        native._library_path(jpeg.JPEG_SOURCE).name]
+        native._library_path(jpeg.JPEG_SOURCE, jpeg.JPEG_LIBRARIES).name]
 
 
 # --------------------------------------------------------------------------- #
