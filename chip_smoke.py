@@ -170,9 +170,15 @@ Phases, in order; the first failure raises and the script exits non-zero:
    decode (JPEG_GRAY_MAX, JPEG_COLOR_MAX, JPEG_COLOR_MEAN), the CMYK file
    read through PIL with PIL's (H, W, 4), a truncated file raising with its
    index, and beside them nvJPEG's own RGB output's distance from PIL;
-   (b) the colour kernel against its plain version on nvJPEG's planes
-   of those files and of 32 VOC-size 4:2:0 files, bit for bit, with its
-   device time, the plain version's and its bound; (c) decode img/s of the
+   (b) the colour kernel against its plain version, bit for bit, raising
+   on the first byte that differs: on the synthetic planes of
+   JPEG_COLOR_CASES (every kind at widths 1-500 and heights 1-375, the
+   chroma planes two samples wide or less included, one image alone, a
+   2000x1500 image among eight 17x3 ones, every plane at an unaligned
+   offset) and on nvJPEG's planes of those files and of 32 VOC-size 4:2:0
+   files, with the kernel's device time (alone, by CUDA events and by its
+   span in ``torch.profiler``; and whole wrapper calls with the tiles'
+   upload), the plain version's and its bound; (c) decode img/s of the
    32 files, host bytes to host arrays, over 20 repeats: the card's batch
    call, its nvJPEG step alone, and PIL one file at a time; (d) a
    ``DataGenerator`` over a folder of 256 such files through the SSD300
@@ -476,6 +482,26 @@ JPEG_FOLDER_FILES = 256
 JPEG_OPS_PER_PIXEL = 30
 JPEG_COLOR_LIBRARY_NOTE = ("no PyTorch call computes libjpeg's chroma upsampling and "
                            "YCbCr -> RGB conversion")
+# The colour kernel's edge cases, each a batch of (kind, height, width)
+# images of seeded random planes (``jpeg_color_case``): every kind at every
+# edge width and height (widths 1 and 2 and 3 give chroma planes two
+# samples wide or less at 4:2:2 and 4:2:0; 16 and 17 straddle a thread's 8
+# columns; 500 is VOC's), one VOC-size image alone, and a 2000x1500 image
+# (four column tiles) among eight 17x3 ones of every kind.
+JPEG_COLOR_WIDTHS = (1, 2, 3, 15, 16, 17, 33, 500)
+JPEG_COLOR_HEIGHTS = (1, 2, 3, 375)
+JPEG_COLOR_KINDS = {"gray": jpeg_color.KIND_GRAY, "444": jpeg_color.KIND_444,
+                    "422": jpeg_color.KIND_422, "420": jpeg_color.KIND_420}
+JPEG_COLOR_CASES = {
+    **{f"{name}_edges": [(kind, h, w) for h in JPEG_COLOR_HEIGHTS for w in JPEG_COLOR_WIDTHS]
+       for name, kind in JPEG_COLOR_KINDS.items()},
+    "single_420": [(jpeg_color.KIND_420, 375, 500)],
+    "large_among_small": [(jpeg_color.KIND_420, 1500, 2000)]
+    + [(kind, 3, 17) for kind in 2 * list(JPEG_COLOR_KINDS.values())],
+}
+# Each plane of a case starts 0-17 bytes after the one before it, so rows
+# start at every offset from a 16-byte boundary.
+JPEG_COLOR_GAP_MAX = 17
 
 
 def log(msg):
@@ -2388,28 +2414,106 @@ def nvjpeg_rgbi(buffers):
     return [x[..., 0] if pil_decode(b).ndim == 2 else x for x, b in zip(rgb, buffers)]
 
 
+def jpeg_color_case(name):
+    """Case ``name`` of JPEG_COLOR_CASES on the CPU: (planes, layout,
+    out_bytes), every byte of the planes (and of the gaps between them)
+    drawn from a seed, the pixels packed one image after another."""
+    rng = np.random.RandomState(SEED + 200 + list(JPEG_COLOR_CASES).index(name))
+    chunks, rows, end, out_bytes = [], [], 0, 0
+
+    def plane(size):
+        nonlocal end
+        gap = rng.randint(0, JPEG_COLOR_GAP_MAX + 1)
+        chunks.append(rng.randint(0, 256, gap + size).astype(np.uint8))
+        end += gap + size
+        return end - size
+
+    for kind, h, w in JPEG_COLOR_CASES[name]:
+        y_off = plane(h * w)
+        cb_off = cr_off = ch = cw = 0
+        if kind != jpeg_color.KIND_GRAY:
+            ch, cw = jpeg_color.chroma_shape(kind, h, w)
+            cb_off, cr_off = plane(ch * cw), plane(ch * cw)
+        rows.append([y_off, cb_off, cr_off, cw, ch, h, w, kind, out_bytes])
+        out_bytes += h * w * (1 if kind == jpeg_color.KIND_GRAY else 3)
+    return (torch.from_numpy(np.concatenate(chunks)), torch.tensor(rows, dtype=torch.int64),
+            out_bytes)
+
+
+def first_difference(got, want, layout):
+    """Where the colour kernel's bytes first differ from the plain
+    version's: a message naming the byte, its image and its pixel, or None."""
+    diff = torch.nonzero(got != want)
+    if not len(diff):
+        return None
+    at = int(diff[0])
+    rows = layout.numpy()
+    k = int(np.searchsorted(rows[:, 8], at, side="right")) - 1
+    _, _, _, _, _, h, w, kind, off = (int(v) for v in rows[k])
+    channels = 1 if kind == jpeg_color.KIND_GRAY else 3
+    pixel, channel = divmod(at - off, channels)
+    return (f"byte {at} (image {k}: kind {kind}, {h} x {w}; row {pixel // w}, column "
+            f"{pixel % w}, channel {channel}): kernel {int(got[at])}, plain {int(want[at])}; "
+            f"{len(diff)} bytes differ")
+
+
+def kernel_span_ms(fn, name, calls=20, attempts=3):
+    """Milliseconds of device time per call of the kernels whose name holds
+    ``name`` among what ``fn`` launches, from ``torch.profiler``'s kernel
+    spans: the kernel alone, without the copies a call also makes. On the
+    card a profiling session now and then records no kernel at all: up to
+    ``attempts`` sessions, then None (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.device_time_total for e in prof.key_averages() if name in e.key)
+        if us > 0:
+            return 1e-3 * us / calls
+    return None
+
+
 def color_kernel_part(planes, layout, out_bytes, name):
     """The colour kernel against its plain version on the same planes on the
-    card (bit for bit), with its device time, the plain version's and the
-    bound of the bytes and operations these inputs need."""
+    card (bit for bit), with its device time (the kernel alone, its tiles'
+    table already on the card, by CUDA events and by its span in
+    ``torch.profiler``; and whole wrapper calls, the table's upload
+    included), the plain version's and the bound of the bytes and
+    operations these inputs need."""
     got = jpeg_color_kernel.ycc_to_rgb(planes, layout, out_bytes)
     want = jpeg_color.ycc_to_rgb(planes, layout, out_bytes)
     err = int((got.int() - want.int()).abs().max()) if out_bytes else 0
     if err:
-        raise AssertionError(f"colour kernel != plain on {name}: max |diff| {err}")
+        raise AssertionError(f"colour kernel != plain on {name}: "
+                             f"{first_difference(got, want, layout)}")
     rows = layout.numpy()
     pixels = int((rows[:, 5] * rows[:, 6]).sum())
     color = rows[:, 7] != jpeg_color.KIND_GRAY
     nbytes = planes.numel() + layout.numel() * 8 + out_bytes
     ops = JPEG_OPS_PER_PIXEL * int((rows[color, 5] * rows[color, 6]).sum())
     bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
-    kernel_ms = time_calls(lambda: jpeg_color_kernel.ycc_to_rgb(planes, layout, out_bytes),
-                           "cuda", iters=20)
+    table, tiles = jpeg_color_kernel.tile_table(rows)
+    device_table = torch.from_numpy(table).to(planes.device)
+    out = torch.empty(out_bytes, dtype=torch.uint8, device=planes.device)
+
+    def kernel():
+        jpeg_color_kernel.launch(planes, device_table, len(rows), tiles, out)
+
+    kernel_ms = time_calls(kernel, "cuda", iters=20)
+    span_ms = kernel_span_ms(kernel, "ycc_to_rgb")
+    call_ms = time_calls(lambda: jpeg_color_kernel.ycc_to_rgb(planes, layout, out_bytes), "cuda",
+                         iters=20)
     plain_ms = summary(time_cuda(lambda: jpeg_color.ycc_to_rgb(planes, layout, out_bytes), 1,
                                  warmup=1))
-    return dict(shape=name, images=len(rows), pixels=pixels, bytes=nbytes, ops=ops,
-                max_abs_err=err, kernel_ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=max(bytes_ms, ops_ms),
+    return dict(shape=name, images=len(rows), pixels=pixels, tiles=tiles, bytes=nbytes, ops=ops,
+                max_abs_err=err, kernel_ms=kernel_ms,
+                kernel_span_ms=span_ms if span_ms is not None else "not measured",
+                call_ms=call_ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                 library_ms=None, library_note=JPEG_COLOR_LIBRARY_NOTE)
 
@@ -2488,8 +2592,19 @@ def jpeg_phase(card):
     else:
         raise AssertionError("a truncated JPEG decoded without an error")
 
-    # (b) The colour kernel against its plain version on nvJPEG's planes:
-    # the fixtures' (every kind, odd sizes) and 32 VOC-size 4:2:0 files'.
+    # (b) The colour kernel against its plain version: the edge cases'
+    # synthetic planes, then nvJPEG's planes of the fixtures (every kind,
+    # odd sizes) and of 32 VOC-size 4:2:0 files.
+    for case in JPEG_COLOR_CASES:
+        planes, layout, out_bytes = jpeg_color_case(case)
+        planes = planes.cuda()
+        got = jpeg_color_kernel.ycc_to_rgb(planes, layout, out_bytes)
+        want = jpeg_color.ycc_to_rgb(planes, layout, out_bytes)
+        where = first_difference(got, want, layout)
+        if where:
+            raise AssertionError(f"colour kernel != plain on edge case {case}: {where}")
+    log(f"colour kernel == plain on the {len(JPEG_COLOR_CASES)} edge cases "
+        f"({sum(len(v) for v in JPEG_COLOR_CASES.values())} images)")
     scenes = [jpeg_scene(SEED + 100 + k, *JPEG_SIZES[0]) for k in range(JPEG_BATCH)]
     voc = [encode_jpeg(img, quality=JPEG_QUALITY, subsampling=2) for img, _ in scenes]
     fixtures_part = color_kernel_part(*jpeg.decode_planes([files[n] for n in names])[:3],
@@ -2498,7 +2613,9 @@ def jpeg_phase(card):
     voc_part = color_kernel_part(planes, layout, out_bytes, "voc32_420")
     lines.append(dict(metric="jpeg_color_kernel_ms", parts=[fixtures_part, voc_part], card=card))
     log(f"colour kernel == plain on the card (fixtures and 32 VOC files); VOC batch "
-        f"{voc_part['kernel_ms']['median'] * 1e3:.1f} us, bound "
+        f"{voc_part['kernel_ms']['median'] * 1e3:.1f} us of kernel (profiler span "
+        f"{voc_part['kernel_span_ms']}), {voc_part['call_ms']['median'] * 1e3:.1f} us a call, "
+        f"bound "
         f"{voc_part['bound_ms'] * 1e3:.1f} us ({voc_part['bound_by']}), plain "
         f"{voc_part['plain_ms']['median']:.2f} ms")
 
@@ -2812,7 +2929,8 @@ def main():
         replaces="ssd_keras_tpu/native/ssd_jpeg.cpp:72 (libjpeg's upsampling and colour "
                  "conversion in the host decoder; no TPU kernel)",
         launches=colour["launches"], max_abs_err=colour["max_abs_err"],
-        ms=colour["part"]["kernel_ms"]["median"], plain_ms=colour["part"]["plain_ms"]["median"],
+        ms=colour["part"]["kernel_ms"]["median"], span_ms=colour["part"]["kernel_span_ms"],
+        call_ms=colour["part"]["call_ms"]["median"], plain_ms=colour["part"]["plain_ms"]["median"],
         bound_ms=colour["part"]["bound_ms"], bound_by=colour["part"]["bound_by"],
         library_ms=None, library_note=JPEG_COLOR_LIBRARY_NOTE, shape=colour["part"]["shape"],
         launches_by_path=dict(jpeg_generator=colour["launches"]),

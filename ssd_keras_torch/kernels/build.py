@@ -144,7 +144,7 @@ def load_library() -> ctypes.CDLL:
     lib.ssd_greedy_nms.restype = ctypes.c_int
     lib.ssd_nms_iou_mask.argtypes = [p, p, p, i, i, f, f, p]
     lib.ssd_nms_iou_mask.restype = ctypes.c_int
-    lib.ssd_jpeg_ycc_to_rgb.argtypes = [p, p, p, i, ctypes.c_longlong, p]
+    lib.ssd_jpeg_ycc_to_rgb.argtypes = [p, ctypes.c_longlong, p, p, p, i, p]
     lib.ssd_jpeg_ycc_to_rgb.restype = ctypes.c_int
     return lib
 

@@ -10,7 +10,8 @@ built with g++), the predictor on gray and RGBA frames (no PIL) and through
 its per-shape CUDA graphs (equal to the eager path, NMS launches counted on
 replay, dropped on a weight reload, a scratch of each graph's own), the
 host-chain Trainer, and the JPEG batch decoder (nvJPEG and the colour
-kernel against PIL and the kernel's plain version, errors with the file's
+kernel against PIL and the kernel's plain version, on nvJPEG's planes and
+on ``chip_smoke.JPEG_COLOR_CASES``' edge cases, errors with the file's
 index, calls from several threads, ``DataGenerator``'s batch path).
 
 Every test here is marked ``cuda`` and skips without a card. The file
@@ -27,7 +28,8 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from chip_smoke import EagerPredictor, StreamModel, noisy_oracle, random_lanes, seeded_state
+from chip_smoke import (JPEG_COLOR_CASES, EagerPredictor, StreamModel, noisy_oracle,
+                        random_lanes, seeded_state)
 from ssd_keras_torch import SSDConfig, SSDInputEncoder, SSDLoss, SSDPredictor, ssd_7, ssd_300
 from ssd_keras_torch import train as T
 from ssd_keras_torch.data import SynthVOC
@@ -653,6 +655,26 @@ def test_colour_kernel_equals_plain_on_nvjpeg_planes(cuda):
     assert planes.is_cuda and len(files) == len(layout) == 17  # all but the CMYK file
     got = color_kernel.ycc_to_rgb(planes, layout, out_bytes)
     assert torch.equal(got, jpeg_color.ycc_to_rgb(planes, layout, out_bytes))
+
+
+@pytest.mark.parametrize("case", sorted(JPEG_COLOR_CASES))
+def test_colour_kernel_equals_plain_on_edge_cases(cuda, case):
+    """``chip_smoke.py`` phase 14's synthetic planes (every kind at widths
+    1-500 and heights 1-375, one image alone, a 2000x1500 image among small
+    ones, planes at every alignment): one launch, bit for bit the plain
+    version on the card and on the CPU."""
+    from chip_smoke import first_difference, jpeg_color_case
+    from ssd_keras_torch.kernels import jpeg_color as color_kernel
+    from ssd_keras_torch.ops import jpeg_color
+
+    planes, layout, out_bytes = jpeg_color_case(case)
+    before = color_kernel.launches
+    got = color_kernel.ycc_to_rgb(planes.to(cuda), layout, out_bytes)
+    torch.cuda.synchronize()
+    assert color_kernel.launches == before + 1
+    assert first_difference(got, jpeg_color.ycc_to_rgb(planes.to(cuda), layout, out_bytes),
+                            layout) is None
+    assert torch.equal(got.cpu(), jpeg_color.ycc_to_rgb(planes, layout, out_bytes))
 
 
 def test_nvjpeg_decode_raises_with_the_file_index(cuda):

@@ -21,6 +21,7 @@ committed. The card's side is ``tests/test_torch_cuda.py`` and
 
 import inspect
 import io
+import re
 from pathlib import Path
 
 import numpy as np
@@ -28,6 +29,8 @@ import pytest
 import torch
 from PIL import Image
 
+from chip_smoke import (JPEG_COLOR_CASES, JPEG_COLOR_HEIGHTS, JPEG_COLOR_WIDTHS,
+                        jpeg_color_case)
 from ssd_keras_torch import native
 from ssd_keras_torch.data import datasets
 from ssd_keras_torch.data.geometric import Resize
@@ -472,13 +475,18 @@ def _batch(planes_list):
     return (torch.from_numpy(np.concatenate(flat)), torch.tensor(rows, dtype=torch.int64), out)
 
 
-@pytest.mark.parametrize("size", [(37, 53), (251, 333), (16, 16), (5, 3), (9, 4), (1, 1),
-                                  (2, 9)])
+_SIZES = [(37, 53), (251, 333), (16, 16), (5, 3), (9, 4), (1, 1), (2, 9)]
+# The colour kernel's edge widths and heights (``chip_smoke.JPEG_COLOR_*``).
+_SIZES += [(h, w) for h in JPEG_COLOR_HEIGHTS for w in JPEG_COLOR_WIDTHS if (h, w) not in _SIZES]
+
+
+@pytest.mark.parametrize("size", _SIZES)
 @pytest.mark.parametrize("name", sorted(_KINDS) + ["gray"])
 def test_plain_colour_stage_equals_pil(name, size):
     """libjpeg's upsampling and conversion in PyTorch, on the planes of a
     JPEG made to hold exactly those planes, give PIL's decode bit for bit
-    (the edges, odd sizes and chroma planes two samples wide included)."""
+    (the edges, odd sizes and chroma planes two samples wide included, at
+    the colour kernel's edge widths 1-500 and heights 1-375)."""
     rng = np.random.RandomState(size[0] * 100 + size[1])
     h, w = size
     if name == "gray":
@@ -550,3 +558,152 @@ def test_colour_wrapper_dispatches_by_device():
         color_kernel.ycc_to_rgb(flat.float(), layout, 12)
     with pytest.raises(ValueError, match="CPU int64"):
         color_kernel.ycc_to_rgb(flat, layout.int(), 12)
+
+
+# --------------------------------------------------------------------------- #
+# The colour kernel's tiles
+# --------------------------------------------------------------------------- #
+
+_SOURCE = (REPO / "ssd_keras_torch" / "csrc" / "jpeg_color.cu").read_text()
+
+
+def _constants():
+    """The source's namespace-level ``constexpr int`` constants, each
+    expression evaluated."""
+    values = {}
+    for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", _SOURCE, re.M):
+        values[name] = eval(expr.replace("/", "//"), {}, dict(values))  # integer arithmetic
+    return values
+
+
+def _round16(v):
+    return (v + 15) & ~15
+
+
+def test_tile_plan_constants_match_the_kernel_and_fit_its_staging():
+    """The wrapper plans the tiles by the kernel's constants, and for every
+    tile the plan gives, what the kernel stages fits its shared buffers (at
+    the pitches the source computes): the Y rows, and 4:4:4's Cb and Cr
+    rows, a plane each; both planes' raw subsampled chroma rows (4:2:0's
+    context rows included); their (cb | cr << 16) words; the RGB rows; and
+    one thread a staged row."""
+    c = _constants()
+    assert (c["kTileCols"], c["kTilePixels"], c["kTileRowsMax"], c["kBandFields"]) == (
+        color_kernel.TILE_COLS, color_kernel.TILE_PIXELS, color_kernel.TILE_ROWS_MAX,
+        color_kernel.BAND_FIELDS)
+    assert c["kPlaneBytes"] + c["kRawBytes"] <= c["kStageBytes"] == 3 * c["kPlaneBytes"]
+    for cols in range(1, color_kernel.TILE_COLS + 1):
+        rows, tile_cols = color_kernel.tile_shape(cols)
+        assert tile_cols == cols and rows % 2 == 0 and 2 <= rows <= color_kernel.TILE_ROWS_MAX
+        groups = (cols + 7) // 8
+        chroma_rows = max(rows // 2 + 2, rows)  # 4:2:0's context rows, 4:2:2's own
+        assert rows * (_round16(cols) + 32) <= c["kPlaneBytes"]
+        assert 2 * chroma_rows * (_round16(4 * groups + 4) + 48) <= c["kRawBytes"]
+        assert chroma_rows * (4 * groups + 4) * 4 <= c["kWordBytes"]
+        assert rows * (_round16(3 * cols) + 32) <= c["kRgbBytes"]
+        assert rows + 2 * chroma_rows <= min(c["kOffsets"], c["kThreads"])
+    assert color_kernel.tile_shape(4000) == color_kernel.tile_shape(color_kernel.TILE_COLS)
+
+
+@pytest.mark.parametrize("case", sorted(JPEG_COLOR_CASES))
+def test_tiles_cover_every_pixel_once(case):
+    _, layout, _ = jpeg_color_case(case)
+    rows = layout.numpy()
+    tiles = color_kernel.bands(rows)
+    assert tiles.dtype == np.int32 and tiles.shape[1] == color_kernel.BAND_FIELDS
+    seen = [np.zeros((h, w), np.int32) for h, w in rows[:, 5:7]]
+    for image, row0, col0, n in tiles.tolist():
+        h, w = rows[image, 5:7]
+        tile_rows, tile_cols = color_kernel.tile_shape(int(w))
+        assert row0 % tile_rows == 0 and col0 % tile_cols == 0 and row0 % 2 == 0
+        assert 1 <= n <= tile_rows and (n == tile_rows or row0 + n == h)
+        seen[image][row0:row0 + n, col0:col0 + min(tile_cols, w - col0)] += 1
+    assert all((s == 1).all() for s in seen)
+    assert list(tiles[:, 0]) == sorted(tiles[:, 0])
+
+
+def _tiles_like_the_kernel(planes, layout, out_bytes):
+    """The kernel's computation in NumPy, tile by tile as it runs: each tile's
+    staged chroma (context rows and columns clamped to the plane), each
+    8-column group's six samples, the kernel's folded conversion
+    constants. Holds the tiling and the kernel's index arithmetic (not its
+    CUDA) to the plain version here."""
+    rows = jpeg_color.check_layout(layout, planes.numel(), out_bytes)
+    data = planes.numpy().astype(np.int64)
+    out = np.zeros(out_bytes, np.uint8)
+    for image, row0, col0, n in color_kernel.bands(rows).tolist():
+        y_off, cb_off, cr_off, cw, ch, h, w, kind, off = rows[image].tolist()
+        cols = min(color_kernel.TILE_COLS, w - col0)
+        y = data[y_off:y_off + h * w].reshape(h, w)[row0:row0 + n, col0:col0 + cols]
+        at = (np.arange(row0, row0 + n)[:, None] * w + np.arange(col0, col0 + cols))
+        if kind == jpeg_color.KIND_GRAY:
+            out[off + at] = y
+            continue
+        planes_cbcr = [data[o:o + ch * cw].reshape(ch, cw) for o in (cb_off, cr_off)]
+        if kind == jpeg_color.KIND_444:
+            cb, cr = (p[row0:row0 + n, col0:col0 + cols] for p in planes_cbcr)
+        else:
+            groups = (cols + 7) // 8
+            c = np.arange(8 * groups)
+            odd = c % 2 == 1
+            j = c // 2 + 1  # staged position of the column's own sample
+            jn = np.where(odd, j + 1, j - 1)
+            cidx = np.clip(col0 // 2 - 1 + np.arange(4 * groups + 4), 0, cw - 1)
+            first = row0 // 2 - 1 if kind == jpeg_color.KIND_420 else row0
+            count = (n + 1) // 2 + 2 if kind == jpeg_color.KIND_420 else n
+            ridx = np.clip(first + np.arange(count), 0, ch - 1)
+            up = []
+            for p in planes_cbcr:
+                staged = p[ridx][:, cidx]
+                tile = np.empty((n, 8 * groups), np.int64)
+                for r in range(n):
+                    if kind == jpeg_color.KIND_420:
+                        own = staged[r // 2 + 1]
+                        if cw <= 2:
+                            tile[r] = own[j]
+                            continue
+                        sums = 3 * own + staged[r // 2 + (2 if r % 2 else 0)]
+                        tile[r] = (3 * sums[j] + sums[jn] + np.where(odd, 7, 8)) >> 4
+                    else:
+                        own = staged[r]
+                        tile[r] = own[j] if cw <= 2 else (
+                            3 * own[j] + own[jn] + np.where(odd, 2, 1)) >> 2
+                up.append(tile[:, :cols])
+            cb, cr = up
+        rgb = np.stack([y + ((91881 * cr - 11728000) >> 16),
+                        y + ((8910336 - 22554 * cb - 46802 * cr) >> 16),
+                        y + ((116130 * cb - 14831872) >> 16)], -1)
+        out[off + 3 * at[..., None] + np.arange(3)] = np.clip(rgb, 0, 255)
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("case", sorted(JPEG_COLOR_CASES))
+def test_kernel_tiling_equals_plain_on_the_edge_cases(case):
+    planes, layout, out_bytes = jpeg_color_case(case)
+    want = color_kernel.ycc_to_rgb(planes, layout, out_bytes)  # the CPU: plain
+    assert torch.equal(_tiles_like_the_kernel(planes, layout, out_bytes), want)
+
+
+def test_edge_cases_put_planes_at_every_alignment():
+    offsets = np.concatenate([jpeg_color_case(c)[1].numpy()[:, :3].ravel()
+                              for c in JPEG_COLOR_CASES])
+    assert set(offsets % 16) == set(range(16))
+
+
+def test_kernel_launch_checks_its_table_and_output():
+    """``kernels/jpeg_color.py:launch`` (the kernel on a table already on
+    the card) refuses a table or an output the kernel would misread, before
+    anything is launched."""
+    planes, layout, out_bytes = jpeg_color_case("single_420")
+    table, tiles = color_kernel.tile_table(layout.numpy())
+    assert tiles == len(color_kernel.bands(layout.numpy()))
+    good, out = torch.from_numpy(table), torch.empty(out_bytes, dtype=torch.uint8)
+    before = color_kernel.launches
+    for bad in (good[:-1], good.int(), good.float()):
+        with pytest.raises(ValueError, match="table"):
+            color_kernel.launch(planes, bad, len(layout), tiles, out)
+    with pytest.raises(ValueError, match="table"):
+        color_kernel.launch(planes, good, len(layout), tiles + 1, out)
+    with pytest.raises(ValueError, match="out"):
+        color_kernel.launch(planes, good, len(layout), tiles, out.int())
+    assert color_kernel.launches == before
