@@ -197,6 +197,17 @@ Phases, in order; the first failure raises and the script exits non-zero:
    indices exact); ``train.fit_generator(trainer=...)`` takes 2 SSD7 steps
    at 64x64 on the card with a finite loss.
 
+16. The port's benchmarks, as a user runs them: ``bench.main([])`` at its
+   defaults (SSD300 'inference' batch 8 bf16, 5 rounds of 30 eager calls,
+   then the same through the predictor's CUDA graph and its device time)
+   and ``bench_all.main(["--quick"])`` (the 27 rows of the JAX matrix's
+   names, 10 calls a repeat). Gates: every key of the JAX scripts' line,
+   artifact and rows; every row's time and throughput finite and positive;
+   every row that decodes launched the NMS kernel, and the rows' launches
+   add up to the kernel's count; the headline's graph replay gives the
+   eager call's detections bit for bit. Its lines: the headline's record,
+   each row, and the phase's seconds.
+
 It prints JSON lines (timings, then the kernels line), then as its last line
 ``{"ok": true, "device": {...}}``. With no CUDA device it raises before
 printing any result. Imports torch, numpy and ssd_keras_torch, and PIL in
@@ -2764,6 +2775,83 @@ def surface_phase(device, card):
                 fit_generator_s=fit_s, card=card)
 
 
+# Phase 16: the keys of the JAX scripts' headline line, matrix artifact and
+# rows, which the port's benchmarks keep.
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "runs", "spread_pct")
+BENCH_ADDED_KEYS = ("graph_value", "graph_runs", "device_ms", "graph_bit_equal",
+                    "nms_launches", "card")
+BENCH_MATRIX_KEYS = ("device", "timestamp", "n_iters", "rows")
+BENCH_ROW_KEYS = ("name", "ms_per_batch", "throughput", "baseline", "vs_baseline", "timer",
+                  "nms_launches")
+
+
+def bench_phase(card):
+    """Phase 16, the port's two benchmarks as a user runs them. Returns (JSON
+    lines, NMS launches by path)."""
+    from unittest import mock
+
+    from ssd_keras_torch import bench, bench_all
+
+    lines, launches = [], {}
+    torch.cuda.empty_cache()
+    with mock.patch.dict(os.environ):
+        for name in ("BENCH_BATCH", "BENCH_DTYPE", "BENCH_ITERS", "BENCH_REPEATS"):
+            os.environ.pop(name, None)  # the defaults: batch 8, bf16, 30 x 5
+        nms_kernel.launches = 0
+        t0 = time.perf_counter()
+        head = bench.main([])
+        torch.cuda.synchronize()
+        launches["bench"] = nms_kernel.launches
+        bench_s = time.perf_counter() - t0
+    runs = head["runs"]
+    if not (all(k in head for k in BENCH_KEYS + BENCH_ADDED_KEYS)
+            and head["metric"] == "ssd300_inference_fps_batch8" and head["unit"] == "images/s"
+            and all(np.isfinite(r) and r > 0 for r in runs + head["graph_runs"])
+            and runs == sorted(runs) and head["value"] == runs[-1]
+            and head["graph_value"] == head["graph_runs"][-1]
+            and abs(head["vs_baseline"] - head["value"] / bench.BASELINE_FPS[8]) <= 0.01):
+        raise AssertionError(f"bench.py's line: {head}")
+    if not (head["device_ms"]["median"] > 0 and head["nms_launches"] > 0
+            and launches["bench"] == head["nms_launches"] and head["card"] == card):
+        raise AssertionError(f"bench.py's device time or NMS launches: {head}")
+    if head["graph_bit_equal"] is not True:
+        raise AssertionError("bench.py: the graph replay's detections differ from the eager "
+                             "call's on the bench's input")
+    lines.append(dict(metric="bench", record=head, seconds=bench_s, card=card))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "matrix.json")
+        nms_kernel.launches = 0
+        t0 = time.perf_counter()
+        matrix = bench_all.main(["--quick", "--out", out])
+        torch.cuda.synchronize()
+        launches["bench_matrix"] = nms_kernel.launches
+        matrix_s = time.perf_counter() - t0
+        with open(out) as f:
+            written = json.load(f)
+    rows = matrix["rows"]
+    decoding = {row.name for row in bench_all.MATRIX if row.decodes}
+    if not (written == matrix and all(k in matrix for k in BENCH_MATRIX_KEYS)
+            and matrix["n_iters"] == 10 and matrix["device"] == card
+            and [r["name"] for r in rows] == bench_all.row_names() and len(rows) == 27):
+        raise AssertionError(f"bench_all.py's artifact: {matrix}")
+    for row in rows:
+        if not (all(k in row for k in BENCH_ROW_KEYS)
+                and all(np.isfinite(row[k]) and row[k] > 0
+                        for k in ("ms_per_batch", "throughput"))
+                and (row["nms_launches"] > 0 or row["name"] not in decoding)):
+            raise AssertionError(f"bench_all.py's row: {row}")
+    if launches["bench_matrix"] != sum(r["nms_launches"] for r in rows):
+        raise AssertionError(f"bench_all.py's rows count {sum(r['nms_launches'] for r in rows)} "
+                             f"NMS launches, the kernel {launches['bench_matrix']}")
+    lines += [dict(metric="bench_matrix_row", **row) for row in rows]
+    lines.append(dict(metric="bench_matrix", n_rows=len(rows), n_iters=matrix["n_iters"],
+                      seconds=matrix_s, card=card))
+    log(f"phase 16: bench {head['value']} img/s eager, {head['graph_value']} graph replay "
+        f"({bench_s:.1f} s); bench_all --quick {len(rows)} rows in {matrix_s:.1f} s")
+    return lines, launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; the port's main path runs on one")
@@ -2910,6 +2998,10 @@ def main():
     # closed the gap to the JAX package's names.
     lines.append(surface_phase(device, card))
 
+    # 16. The port's benchmarks: the headline and the matrix.
+    bench_lines, bench_launches = bench_phase(card)
+    lines += bench_lines
+
     for line in lines:
         print(json.dumps(line), flush=True)
 
@@ -2923,7 +3015,8 @@ def main():
         launches_by_path=dict(serving=main_launches, serving_requests=serve_launches,
                               **graph_launches,
                               **dp_launches, **eval_launches, host_chain=host_launches,
-                              **workflow_launches, **ab_launches, **speed_launches),
+                              **workflow_launches, **ab_launches, **speed_launches,
+                              **bench_launches),
     ), dict(
         name="jpeg_ycc_to_rgb", route="cuda", source="ssd_keras_torch/csrc/jpeg_color.cu",
         replaces="ssd_keras_tpu/native/ssd_jpeg.cpp:72 (libjpeg's upsampling and colour "

@@ -60,7 +60,8 @@ def test_import_needs_neither_jax_nor_the_jax_package():
         "        'ssd_keras_torch.examples.serving_trunk_bench',\n"
         "        'ssd_keras_torch.examples.streaming_bench',\n"
         "        'ssd_keras_torch.native.jpeg', 'ssd_keras_torch.kernels.jpeg_color',\n"
-        "        'ssd_keras_torch.ops.jpeg_color'} <= set(sys.modules)\n"
+        "        'ssd_keras_torch.ops.jpeg_color', 'ssd_keras_torch.bench',\n"
+        "        'ssd_keras_torch.bench_all'} <= set(sys.modules)\n"
         "bad = {'jax', 'flax', 'optax', 'orbax', 'ssd_keras_tpu', 'h5py', 'PIL', 'triton',\n"
         "       'cv2', 'bs4', 'lxml'}\n"
         "bad &= set(sys.modules)\n"
@@ -89,6 +90,7 @@ def test_host_chains_run_with_opencv_pil_and_jax_absent():
         "import importlib, pkgutil, random, numpy as np, ssd_keras_torch\n"
         "for m in pkgutil.walk_packages(ssd_keras_torch.__path__, 'ssd_keras_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "assert {'ssd_keras_torch.bench', 'ssd_keras_torch.bench_all'} <= set(sys.modules)\n"
         "from ssd_keras_torch.data import SynthVOC, chains, geometric\n"
         "from ssd_keras_torch.predictor import resize_bilinear_pil, to_rgb\n"
         "img, lab = SynthVOC(1, image_size=96).render(0)\n"
@@ -117,9 +119,10 @@ def _build_dir_listing():
 
 def test_package_reexports_import_without_jax_and_build_nothing():
     """The five packages that re-export the JAX package's names (``data``,
-    ``parallel``, ``utils``, ``kernels``, ``ops``) import in a fresh
-    interpreter with ``jax`` and the JAX package blocked, load no library
-    and leave ``_build/`` as it was."""
+    ``parallel``, ``utils``, ``kernels``, ``ops``) and the two benchmarks
+    (``bench``, ``bench_all``) import in a fresh interpreter with ``jax``
+    and the JAX package blocked, load no library and leave ``_build/`` as it
+    was."""
     code = (
         "import importlib.abc, sys\n"
         "class Block(importlib.abc.MetaPathFinder):\n"
@@ -134,8 +137,9 @@ def test_package_reexports_import_without_jax_and_build_nothing():
         "from ssd_keras_torch.utils import benchmark_fps, device_sync, trace\n"
         "from ssd_keras_torch.kernels import greedy_nms_mask_batched, build, nms, jpeg_color\n"
         "from ssd_keras_torch.ops import anchors, boxes, matching\n"
-        "from ssd_keras_torch import native\n"
+        "from ssd_keras_torch import native, bench, bench_all\n"
         "assert callable(prefetch) and nms.launches == 0\n"
+        "assert len(bench_all.row_names()) == 27 and bench.BASELINE_FPS[8] == 49.0\n"
         "assert build.load_library.cache_info().currsize == 0\n"
         "assert build.load_nvjpeg_library.cache_info().currsize == 0\n"
         "assert native.load_library.cache_info().currsize == 0\n"
