@@ -107,6 +107,9 @@ Phases, in order; the first failure raises and the script exits non-zero:
    timed against their plain versions (median of 5), and the chain's time by
    transform through either (the same images and labels from the same
    seeds): the ``host_ops`` line with the native calls per chain image.
+   The fixtures cover every type OpenCV resizes and warps (uint8, uint16,
+   int16, float32, float64) at 1, 2 and 3 channels, both of its warp paths,
+   and uint16 RGB->GRAY; their count and seconds are in the line.
    (a) SSD300 VOC at full width from a SynthVOC
    ``DataGenerator`` of 256 images at 300x300 through ``generate(batch_size=
    32, shuffle=True, transformations=[SSDDataAugmentation(300, 300)],
@@ -208,6 +211,17 @@ Phases, in order; the first failure raises and the script exits non-zero:
    eager call's detections bit for bit. Its lines: the headline's record,
    each row, and the phase's seconds.
 
+17. The graft entry, ``ssd_keras_torch.graft_entry.entry()`` (SSD300 at
+   full width, 'training' mode, bf16, batch 8 of the JAX entry's bytes):
+   three eager calls, equal to each other; a CUDA-graph capture of
+   ``forward`` on a side stream (``graft_entry.CapturedForward``) whose
+   replay equals the eager output bit for bit (``torch.equal``); the same
+   model at f32 with TF32 off, the bf16 output within ENTRY_BF16_REL_L2 of
+   it on the class probabilities and the box offsets, the anchors equal.
+   The path launches no hand-written kernel. Its line: eager and replay ms
+   (CUDA events, median of 5 x 20 calls), the eager call's device time, the
+   graph pool's MB and the card.
+
 It prints JSON lines (timings, then the kernels line), then as its last line
 ``{"ok": true, "device": {...}}``. With no CUDA device it raises before
 printing any result. Imports torch, numpy and ssd_keras_torch, and PIL in
@@ -254,6 +268,9 @@ from ssd_keras_torch.encoder import pad_labels
 from ssd_keras_torch.eval import COCOEvalBBox, Evaluator, predict_all_to_json
 from ssd_keras_torch.eval.evaluator import HostCopy
 from ssd_keras_torch.examples.common import card_line, scale_to_trained_range
+# Inputs of the image-op checks: integer types over their whole range, floats
+# over [-20, 280), so that the clamps and the negative taps are reached.
+from ssd_keras_torch.examples.opencv_parity import noise as image_op_noise
 from ssd_keras_torch.kernels import build
 from ssd_keras_torch.kernels import jpeg_color as jpeg_color_kernel
 from ssd_keras_torch.kernels import nms as nms_kernel
@@ -404,6 +421,11 @@ IMAGE_OP_WARPS = {
     "rotation": geometric.rotation_matrix_2d((10.3, 7.1), 33.3, 0.8),
 }
 IMAGE_OP_BORDERS = {"zero": 0, "coloured": (10, 200, 30)}
+# The image types and channel counts the fixtures cover: every type OpenCV
+# resizes and warps, and 2 channels beside 1 and 3 (OpenCV's remap-path warp
+# and its scalar resize paths).
+IMAGE_OP_DTYPES = (np.uint8, np.uint16, np.int16, np.float32, np.float64)
+IMAGE_OP_CHANNELS = (1, 2, 3)
 IMAGE_OP_CVT = (("RGB", "HSV"), ("HSV", "RGB"), ("RGB", "GRAY"))
 IMAGE_OP_CVT_WIDTHS = (31, 32, 33, 65)
 HOST_OP_REPEATS = 5
@@ -1791,14 +1813,6 @@ def check_host_batch(name, images, boxes, batch, size):
         raise AssertionError(f"{name}: a batch without a box")
 
 
-def image_op_noise(rng, shape, dtype):
-    """Inputs of the image-op checks: uint8 over its range; floats over
-    [-20, 280), so that the clamps and the negative taps are reached."""
-    if dtype == np.uint8:
-        return rng.randint(0, 256, shape).astype(np.uint8)
-    return (rng.rand(*shape) * 300 - 20).astype(dtype)
-
-
 def same_image(name, got, want):
     if got.dtype != want.dtype or got.shape != want.shape or not np.array_equal(got, want):
         raise AssertionError(f"host image op {name}: native != plain")
@@ -1812,8 +1826,8 @@ def host_op_checks():
     n = 0
     for case, (src, dst) in IMAGE_OP_RESIZES.items():
         for mode_name, mode in IMAGE_OP_MODES.items():
-            for dtype in (np.uint8, np.float32, np.float64):
-                for channels in (1, 3):
+            for dtype in IMAGE_OP_DTYPES:
+                for channels in IMAGE_OP_CHANNELS:
                     image = image_op_noise(rng, (*src, channels), dtype)
                     same_image(f"resize {case} {mode_name} {np.dtype(dtype).name} x{channels}",
                                geometric.resize_image(image, *dst, mode),
@@ -1829,10 +1843,15 @@ def host_op_checks():
                            photometric.cvt_color(image, current, to),
                            photometric.cvt_color_numpy(image, current, to))
                 n += 1
+        image = image_op_noise(rng, (5, width, 3), np.uint16)
+        same_image(f"cvt_color RGB->GRAY uint16 width {width}",
+                   photometric.cvt_color(image, "RGB", "GRAY"),
+                   photometric.cvt_color_numpy(image, "RGB", "GRAY"))
+        n += 1
     h, w = IMAGE_OP_WARP_SHAPE
     for name, m in IMAGE_OP_WARPS.items():
-        for dtype in (np.uint8, np.float32, np.float64):
-            for channels in (1, 3):
+        for dtype in IMAGE_OP_DTYPES:
+            for channels in IMAGE_OP_CHANNELS:
                 for border_name, border in IMAGE_OP_BORDERS.items():
                     image = image_op_noise(rng, (h, w, channels), dtype)
                     for dsize in ((w, h), (h + 4, w - 3)):
@@ -1939,10 +1958,13 @@ def host_chain_phase(state, device, card):
     synth = SynthVOC(HOST_IMAGES, image_size=300, split="train", seed=SEED)
     dataset = synth.as_data_generator()
 
+    t0 = time.perf_counter()
     n_checked = host_op_checks()
+    checks_s = time.perf_counter() - t0
     op_ms = host_op_timings()
     log(f"host image ops: native == plain bit for bit in "
-        f"{n_checked} fixture comparisons and {len(op_ms)} at the chain's sizes; "
+        f"{n_checked} fixture comparisons ({checks_s:.1f} s) and {len(op_ms)} at the chain's "
+        f"sizes; "
         + ", ".join(f"{k} {v['ms']:.2f} ms (plain {v['plain_ms']:.2f})" for k, v in op_ms.items()))
     enc = SSDInputEncoder(cfg, sizes, max_gt_boxes=HOST_MAX_GT, device=device)
 
@@ -2081,7 +2103,8 @@ def host_chain_phase(state, device, card):
         dict(metric="host_ops", source="ssd_keras_torch/native/ssd_image_ops.cpp",
              plain="data.geometric.resize_image_numpy, warp_affine_numpy, "
                    "data.photometric.cvt_color_numpy",
-             checked_bit_equal=n_checked + len(op_ms), ops=op_ms,
+             checked_bit_equal=n_checked + len(op_ms), fixture_checks=n_checked,
+             fixture_checks_s=checks_s, ops=op_ms,
              calls_per_chain_image=calls_per_image, chain_images=chain_images,
              chain_split=dict(images=CHAIN_SPLIT_IMAGES, **split),
              timer=f"host clock, median of {HOST_OP_REPEATS}, each call in turn with its plain one",
@@ -2852,6 +2875,90 @@ def bench_phase(card):
     return lines, launches
 
 
+# Phase 17: the bf16 entry against the same model at f32 (TF32 off), by
+# relative L2 norm of the difference on each part of the output. Twice the
+# JAX package's own bf16-vs-f32 distance on the entry's first image (0.0698
+# on the class probabilities, 0.0102 on the box offsets, on the CPU), as
+# tests/test_torch_graft_entry.py measures it and holds this to.
+ENTRY_BF16_REL_L2 = {"probs": 0.14, "boxes": 0.021}
+ENTRY_PARTS = {"probs": slice(0, 21), "boxes": slice(21, 25), "anchors": slice(25, 33)}
+ENTRY_EAGER_CALLS = 3
+ENTRY_TIMED_ITERS = 20
+ENTRY_TIMED_REPEATS = 5
+
+
+def entry_phase(card):
+    """Phase 17, the graft entry (``ssd_keras_torch.graft_entry``) on the
+    card. Returns its JSON line."""
+    from ssd_keras_torch import graft_entry
+
+    device = torch.device("cuda")
+    torch.cuda.empty_cache()
+    nms_before, colour_before = nms_kernel.launches, jpeg_color_kernel.launches
+    forward, (model, x) = graft_entry.entry()
+    if not (x.device.type == "cuda" and model.mode == "training"
+            and model.compute_dtype == torch.bfloat16):
+        raise AssertionError(f"entry(): x on {x.device}, mode {model.mode}, "
+                             f"compute {model.compute_dtype}")
+    np.testing.assert_array_equal(x.cpu().numpy(), graft_entry.example_batch())
+    eager = [forward(model, x) for _ in range(ENTRY_EAGER_CALLS)]
+    torch.cuda.synchronize()
+    y = eager[0]
+    if tuple(y.shape) != (graft_entry.BATCH, 8732, 33) or y.dtype != torch.float32:
+        raise AssertionError(f"entry forward: {tuple(y.shape)} {y.dtype}")
+    if not bool(torch.isfinite(y).all()):
+        raise AssertionError("entry forward: non-finite output")
+    if not all(torch.equal(e, y) for e in eager[1:]):
+        raise AssertionError("entry forward: the eager calls differ from each other")
+
+    reserved = torch.cuda.memory_reserved()
+    captured = graft_entry.CapturedForward(forward, model, x)
+    reserved_delta = torch.cuda.memory_reserved() - reserved
+    pool = graph_pool_bytes(captured.graph)
+    replay = captured()
+    torch.cuda.synchronize()
+    if not torch.equal(replay, y):
+        raise AssertionError(f"entry: the graph replay differs from the eager call, max |diff| "
+                             f"{float((replay - y).abs().max())}")
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        y32 = forward(graft_entry.entry_model(device, torch.float32), x)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    rel = {}
+    for part, cols in ENTRY_PARTS.items():
+        a, b = y[..., cols].double(), y32[..., cols].double()
+        rel[part] = float((a - b).norm() / b.norm())
+    if not torch.equal(y[..., ENTRY_PARTS["anchors"]], y32[..., ENTRY_PARTS["anchors"]]):
+        raise AssertionError("entry: the anchors differ between bf16 and f32")
+    if any(rel[k] > tol for k, tol in ENTRY_BF16_REL_L2.items()):
+        raise AssertionError(f"entry: bf16 vs f32 relative L2 {rel}, limits {ENTRY_BF16_REL_L2}")
+
+    eager_ms = summary(time_cuda(lambda: forward(model, x), iters=ENTRY_TIMED_ITERS,
+                                 repeats=ENTRY_TIMED_REPEATS))
+    replay_ms = summary(time_cuda(captured.graph.replay, iters=ENTRY_TIMED_ITERS,
+                                  repeats=ENTRY_TIMED_REPEATS))
+    eager_device_ms = time_calls(lambda: forward(model, x), device, iters=5)
+    if (nms_kernel.launches, jpeg_color_kernel.launches) != (nms_before, colour_before):
+        raise AssertionError("entry: the training-mode path launched a hand-written kernel")
+    line = dict(metric="graft_entry", batch=graft_entry.BATCH, dtype="bf16", mode="training",
+                shape=list(y.shape), replay_bit_equal=True, bf16_vs_f32_rel_l2=rel,
+                bf16_vs_f32_limits=ENTRY_BF16_REL_L2, eager_ms=eager_ms, replay_ms=replay_ms,
+                eager_device_ms=eager_device_ms,
+                timer=f"CUDA events, {ENTRY_TIMED_REPEATS} x {ENTRY_TIMED_ITERS} calls back to "
+                      "back (replay: graph.replay() alone)",
+                graph_pool_mb=pool / 2 ** 20 if isinstance(pool, int) else pool,
+                reserved_delta_mb=reserved_delta / 2 ** 20, hand_written_kernels_launched=0,
+                card=card)
+    log(f"phase 17: entry eager {eager_ms['median']:.3f} ms, replay {replay_ms['median']:.3f} "
+        f"ms (bit-equal), pool {line['graph_pool_mb']} MB, bf16 vs f32 {rel}")
+    del captured
+    return line
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; the port's main path runs on one")
@@ -3001,6 +3108,9 @@ def main():
     # 16. The port's benchmarks: the headline and the matrix.
     bench_lines, bench_launches = bench_phase(card)
     lines += bench_lines
+
+    # 17. The graft entry: eager, its CUDA graph, and bf16 against f32.
+    lines.append(entry_phase(card))
 
     for line in lines:
         print(json.dumps(line), flush=True)

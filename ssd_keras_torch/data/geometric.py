@@ -4,43 +4,77 @@ host-side, without OpenCV.
 Port of ``ssd_keras_tpu/data/geometric.py``, which resizes with
 ``cv2.resize`` and warps with ``cv2.warpAffine``. The port does not use
 OpenCV (the machines that run it need not have it), so this module computes
-what OpenCV 5 computes. Python works out each resize's tap indices and
+what OpenCV 5.0 computes, as its wheels ship it: with Intel IPP, which
+``cv2.resize`` hands some cells (a dtype, a mode and 1, 3 or 4 channels) and
+whose arithmetic is its own. Python works out each resize's tap indices and
 weights; the per-pixel loops run in host C++ (``native.image_ops``, built by
-g++ at first use) for uint8, float32 and float64 images, and in NumPy for
-another float type. The NumPy versions, :func:`resize_image_numpy` and
+g++ at first use) for uint8, uint16, int16, float32 and float64 images, and
+in NumPy for another float type (float16, which OpenCV refuses but for
+``INTER_NEAREST``). The NumPy versions, :func:`resize_image_numpy` and
 :func:`warp_affine_numpy`, are the plain versions: the C++ equals them bit
-for bit, and the tests hold both to OpenCV as follows.
+for bit, and the tests hold both to OpenCV as follows. Integer images are
+rounded half to even and saturated to their type (``saturate_cast``).
 
-:func:`resize_image` (``cv2.resize``), for uint8 and float images:
+:func:`resize_image` (``cv2.resize``), for uint8, uint16, int16 and float
+images, and in ``INTER_NEAREST`` also int8, uint32, int32 and bool (int64
+and uint64 come back int32, as from ``cv2``'s binding):
 
 * ``INTER_LINEAR``: source positions ``(d + 0.5) * scale - 0.5``; along x a
   position outside the image takes the edge pixel with weight one, along y
   the two rows are clamped but keep their weights (OpenCV resets only x).
   uint8 runs OpenCV's fixed-point path: 11-bit weights, an integer
   horizontal pass and the vertical pass ``((b0 * (S0 >> 4)) >> 16 + (b1 *
-  (S1 >> 4)) >> 16 + 2) >> 2``. An exact 2x reduction averages 2x2 blocks.
-  uint8 is exact; float interpolates in its own precision (within 1e-3).
-* ``INTER_NEAREST``: source index ``floor(d * scale)``, clamped. Exact.
-* ``INTER_CUBIC``: Keys' cubic with a = -0.75 on four clamped taps, in
-  float32 (OpenCV 5 computes it in float for uint8 too), rounded half to
-  even. Within one level of OpenCV; equal on all but about one pixel in ten
-  thousand (the order of OpenCV's vector additions).
+  (S1 >> 4)) >> 16 + 2) >> 2``; other types sum in float32 (float64 in
+  float64) with float32 weights. An exact 2x reduction averages 2x2 blocks:
+  integer images of 1, 3 or 4 channels ``(sum + 2) >> 2``, float32 of 1 or
+  4 channels ``(a + b) + (c + d)`` in OpenCV's vector pass.
+* ``INTER_NEAREST``: source index ``floor(d * scale)``, clamped. A gather.
+* ``INTER_CUBIC``: Keys' cubic with a = -0.75 on four clamped taps. uint8 in
+  OpenCV's fixed point (11-bit weights, integer rows) with the vertical sum
+  in float32; other types in float32 (float64 in float64). The vertical
+  vector pass adds the taps in reverse over each row's first ``n - n %
+  lanes`` elements (4 lanes for float32, 8 for the others).
 * ``INTER_AREA``: shrinking on both axes averages each output cell's source
-  area with OpenCV's weights (integer factors: the block mean); enlarging
-  on either axis is linear with OpenCV's area-mode positions. Exact.
-* ``INTER_LANCZOS4``: eight clamped taps; uint8 in 11-bit fixed point.
-  Exact for uint8.
+  area with OpenCV's weights (integer factors: the block mean, summed four
+  taps at a time and scaled by float32 ``1 / area``); enlarging on either
+  axis is linear with OpenCV's area-mode positions.
+* ``INTER_LANCZOS4``: eight clamped taps; uint8 in 11-bit fixed point, other
+  types in float32 (float64 in float64), with the reverse vertical pass for
+  float32 and int16.
+
+Against ``cv2`` as shipped: exact in every cell but IPP's, ``INTER_LINEAR``
+of uint16, int16, float32 and float64 and ``INTER_CUBIC`` of uint8, uint16,
+int16 and float32, at 1, 3 or 4 channels. There integers are within one
+level and floats within 2e-3 on values of a 0-255 range. The linear cells
+compute OpenCV's own arithmetic (exact with ``cv2.ipp.setUseIPP(False)``);
+the cubic cells keep a forward float32 sum, which comes nearest IPP's (uint8
+equal on all but about one pixel in ten thousand).
 
 :func:`warp_affine` (``cv2.warpAffine`` with ``INTER_LINEAR`` and a constant
-border): OpenCV 5's float kernel. The map is inverted in double and cast to
-float32, the source position is ``fma(M0, x, M1 * y + M2)``, and the pixel
-is two lerps in x and one in y, each a fused multiply-add, over the four
-neighbours (a neighbour outside the image takes the border value), rounded
-half to even for uint8. Integer translations are exact copies; scale and
-right-angle rotation agree with OpenCV on all but a few pixels in ten
-thousand, within one level. A right-angle ``Rotate`` is not ``np.rot90``:
-OpenCV's result is shifted by a pixel with a border row or column, and so
-is this one.
+border, the border value saturated to the image's type). OpenCV 5 takes one
+of two paths:
+
+* uint8, uint16 and float32 at 1, 3 or 4 channels: its float kernel on
+  unrounded source positions. The map is inverted in double and cast to
+  float32, the source position is ``fma(M0, x, M1 * y + M2)``, and the pixel
+  is two lerps in x and one in y, each a fused multiply-add, over the four
+  neighbours (a neighbour outside the image takes the border value).
+  Integer translations are exact copies. OpenCV's scalar loop over the last
+  ``width % 16`` pixels of a row rounds the position otherwise (the order is
+  not known): there a rotation differs by one level (uint16, under one
+  pixel in a thousand) or 2e-3 (float32 on a 0-300 range, under one pixel
+  in a hundred); uint8 was equal on every fixture.
+* float64 and int16 at any channel count, and every type at another count
+  (2, 5, ...): the remap path, exact. Source positions in 1/32 pixel
+  (``AB_BITS`` 10, ``INTER_BITS`` 5: each row's ``M1 * y + M2`` and each
+  column's ``M0 * x`` scaled by 1024 and rounded, plus 16, shifted right by
+  5), weights from OpenCV's 32 x 32 bilinear table (15-bit integers for
+  uint8, float32 for the others), summed ``v00 w0 + v01 w1 + v10 w2 + v11
+  w3``; a pixel whose four neighbours lie outside is the border itself, and
+  channel ``k`` takes the border's value ``k & 3``.
+
+A right-angle ``Rotate`` is not ``np.rot90``: OpenCV's result is shifted by
+a pixel with a border row or column, and so is this one.
 
 Transforms are callables ``(image, labels=None, return_inverter=False)``;
 inverters map predicted boxes (rows ``[class, conf, xmin, ymin, xmax,
@@ -92,6 +126,26 @@ INTER_LANCZOS4 = 4
 
 _COEF_SCALE = 2048  # OpenCV's INTER_RESIZE_COEF_SCALE: 11-bit weights
 _F32 = np.float32
+# The integer types that OpenCV resizes in every mode and warps.
+_INTEGER_TYPES = (np.dtype(np.uint8), np.dtype(np.uint16), np.dtype(np.int16))
+# The channel counts of OpenCV's vector paths (its 2x area halving and its
+# unrounded warp); another count takes its scalar or remap code.
+_VECTOR_CHANNELS = (1, 3, 4)
+
+
+def _work_type(dtype: np.dtype):
+    """The type OpenCV sums a resize or warp of ``dtype`` in: float32 for
+    the integer types, a float type's own."""
+    return dtype.type if dtype.kind == "f" else _F32
+
+
+def _store(out: np.ndarray, dtype: np.dtype) -> np.ndarray:
+    """``out`` as ``dtype``: integers rounded half to even and saturated
+    (OpenCV's ``saturate_cast``)."""
+    if dtype.kind == "f":
+        return out.astype(dtype)
+    info = np.iinfo(dtype)
+    return np.clip(np.rint(out), info.min, info.max).astype(dtype)
 
 
 # --------------------------------------------------------------------------- #
@@ -146,30 +200,47 @@ def _linear(image: np.ndarray, xtaps, ytaps, native: bool) -> np.ndarray:
         top = (b0[:, None, None] * (rows[y0] >> 4)) >> 16
         bottom = (b1[:, None, None] * (rows[y1] >> 4)) >> 16
         return np.clip((top + bottom + 2) >> 2, 0, 255).astype(np.uint8)
-    dt = image.dtype
-    fx, fy = fx.astype(dt), fy.astype(dt)
-    one = dt.type(1.0)
+    # The weights 1 - f and f are float32 for every type (OpenCV's).
+    dt = _work_type(image.dtype)
+    ax = np.stack([_F32(1.0) - fx, fx], 1).astype(dt)
+    ay = np.stack([_F32(1.0) - fy, fy], 1).astype(dt)
     if native:
-        return image_ops.resize_separable(image, np.stack([x0, x1], 1), np.stack([one - fx, fx], 1),
-                                          np.stack([y0, y1], 1), np.stack([one - fy, fy], 1))
-    rows = image[:, x0] * (one - fx)[None, :, None] + image[:, x1] * fx[None, :, None]
-    return (rows[y0] * (one - fy)[:, None, None] + rows[y1] * fy[:, None, None]).astype(dt)
+        return image_ops.resize_separable(image, np.stack([x0, x1], 1), ax,
+                                          np.stack([y0, y1], 1), ay)
+    src = image.astype(dt)
+    rows = (src[:, x0] * ax[None, :, 0, None] + src[:, x1] * ax[None, :, 1, None]).astype(dt)
+    return _store(rows[y0] * ay[:, 0, None, None] + rows[y1] * ay[:, 1, None, None], image.dtype)
 
 
 def _halve(image: np.ndarray, native: bool) -> np.ndarray:
     """An exact 2x reduction: the mean of each 2x2 block, as OpenCV's fast
-    area resize computes it."""
+    area resize computes it. Integer images of 1, 3 or 4 channels take its
+    vector path, ``(sum + 2) >> 2``; of another count its scalar block
+    mean (``_block_mean``)."""
     h, w = image.shape[0] // 2 * 2, image.shape[1] // 2 * 2
+    c = image.shape[2]
+    if image.dtype.kind in "ui" and c not in _VECTOR_CHANNELS:
+        return _block_mean(image, h // 2, w // 2, 2, 2, native)
+    # float32 of 1 or 4 channels: OpenCV's vector pass, (a + b) + (c + d),
+    # on the first n - n % 4 elements of each output row.
+    lanes = 4 if image.dtype == np.float32 and c in (1, 4) else 0
     if native:
-        return image_ops.resize_block_mean(image, h // 2, w // 2, 2, 2, halve=True)
+        return image_ops.resize_block_mean(image, h // 2, w // 2, 2, 2, halve=True, lanes=lanes)
     q = image[:h, :w]
-    if image.dtype == np.uint8:
-        q = q.astype(np.int32)
+    if image.dtype.kind in "ui":
+        q = q.astype(np.int64)
         s = q[0::2, 0::2] + q[0::2, 1::2] + q[1::2, 0::2] + q[1::2, 1::2]
-        return ((s + 2) >> 2).astype(np.uint8)
+        return ((s + 2) >> 2).astype(image.dtype)
     quarter = image.dtype.type(0.25)
-    return ((q[0::2, 0::2] + q[0::2, 1::2] + q[1::2, 0::2] + q[1::2, 1::2]) * quarter
-            ).astype(image.dtype)
+    out = ((q[0::2, 0::2] + q[0::2, 1::2] + q[1::2, 0::2] + q[1::2, 1::2]) * quarter
+           ).astype(image.dtype)
+    if lanes:
+        vector = (((q[0::2, 0::2] + q[0::2, 1::2]) + (q[1::2, 0::2] + q[1::2, 1::2])) * quarter
+                  ).astype(image.dtype)
+        flat, flat_vector = out.reshape(len(out), -1), vector.reshape(len(out), -1)
+        vec = flat.shape[1] - flat.shape[1] % lanes
+        flat[:, :vec] = flat_vector[:, :vec]
+    return out
 
 
 def _nearest(image: np.ndarray, out_h: int, out_w: int, native: bool) -> np.ndarray:
@@ -214,6 +285,30 @@ def _area_table(src: int, dst: int, scale: float):
     return index, weight
 
 
+def _block_mean(image: np.ndarray, out_h: int, out_w: int, iy: int, ix: int,
+                native: bool) -> np.ndarray:
+    """OpenCV's integer-factor area resize: the mean of each ``iy`` x ``ix``
+    block, uint8 by its int64 sum, other types by the sum in their work
+    type from 0, times the float32 ``1 / (ix * iy)``."""
+    if native:
+        return image_ops.resize_block_mean(image, out_h, out_w, iy, ix, halve=False)
+    blocks = image[: out_h * iy, : out_w * ix].reshape(out_h, iy, out_w, ix, -1)
+    acc_t = _work_type(image.dtype)
+    scale = acc_t(_F32(1.0) / _F32(ix * iy))  # OpenCV's float scale, for float64 too
+    if image.dtype == np.uint8:
+        total = blocks.astype(np.int64).sum(axis=(1, 3)).astype(_F32)
+        return _store(total * scale, image.dtype)
+    # OpenCV's unrolled sum: the block's pixels in row order, four at a time
+    # added among themselves, then to the total.
+    taps = [blocks[:, a, :, b].astype(acc_t) for a in range(iy) for b in range(ix)]
+    acc = np.zeros((out_h, out_w, image.shape[2]), acc_t)
+    for k in range(0, len(taps) - 3, 4):
+        acc = (acc + (((taps[k] + taps[k + 1]) + taps[k + 2]) + taps[k + 3])).astype(acc_t)
+    for tap in taps[len(taps) // 4 * 4:]:
+        acc = (acc + tap).astype(acc_t)
+    return _store(acc * scale, image.dtype)
+
+
 def _area_shrink(image: np.ndarray, out_h: int, out_w: int, native: bool) -> np.ndarray:
     h, w = image.shape[:2]
     scale_x, scale_y = 1.0 / (out_w / w), 1.0 / (out_h / h)
@@ -222,18 +317,8 @@ def _area_shrink(image: np.ndarray, out_h: int, out_w: int, native: bool) -> np.
     if abs(scale_x - ix) < eps and abs(scale_y - iy) < eps:  # OpenCV's fast area
         if ix == 2 and iy == 2:
             return _halve(image, native)
-        if native:
-            return image_ops.resize_block_mean(image, out_h, out_w, iy, ix, halve=False)
-        blocks = image[: out_h * iy, : out_w * ix].reshape(out_h, iy, out_w, ix, -1)
-        if image.dtype == np.uint8:
-            total = blocks.astype(np.int64).sum(axis=(1, 3)).astype(_F32)
-            return np.clip(np.rint(total * _F32(1.0 / (ix * iy))), 0, 255).astype(np.uint8)
-        acc = np.zeros((out_h, out_w, image.shape[2]), image.dtype)
-        for a in range(iy):
-            for b in range(ix):
-                acc = (acc + blocks[:, a, :, b]).astype(image.dtype)
-        return (acc * image.dtype.type(1.0 / (ix * iy))).astype(image.dtype)
-    acc_t = _F32 if image.dtype == np.uint8 else image.dtype.type
+        return _block_mean(image, out_h, out_w, iy, ix, native)
+    acc_t = _work_type(image.dtype)
     xi, xw = _area_table(w, out_w, scale_x)
     yi, yw = _area_table(h, out_h, scale_y)
     if native:
@@ -246,9 +331,7 @@ def _area_shrink(image: np.ndarray, out_h: int, out_w: int, native: bool) -> np.
     out = (yw[:, 0, None, None].astype(acc_t) * rows[yi[:, 0]]).astype(acc_t)
     for j in range(1, yi.shape[1]):
         out = (out + yw[:, j, None, None].astype(acc_t) * rows[yi[:, j]]).astype(acc_t)
-    if image.dtype == np.uint8:
-        return np.clip(np.rint(out), 0, 255).astype(np.uint8)
-    return out
+    return _store(out, image.dtype)
 
 
 # --------------------------------------------------------------------------- #
@@ -313,42 +396,87 @@ def _dense(index: np.ndarray, weights: np.ndarray, src: int) -> np.ndarray:
     return out
 
 
+# cv2.resize hands INTER_CUBIC of these types at 1, 3 or 4 channels to IPP
+# (the OpenCV wheels are built with it), whose float arithmetic is its own.
+_IPP_CUBIC_TYPES = (np.dtype(np.uint8), np.dtype(np.uint16), np.dtype(np.int16),
+                    np.dtype(np.float32))
+
+
+def _vector_lanes(dtype: np.dtype, ksize: int, channels: int) -> int:
+    """The elements a step of OpenCV's vertical vector pass of a cubic
+    (``ksize`` 4) or Lanczos4 (8) resize, which adds the taps in reverse,
+    ``s0*b0 + (s1*b1 + (... + s7*b7))``; a row's last ``n % lanes``
+    elements take its scalar loop, forward. 0: forward throughout (float64,
+    uint16 Lanczos4, and IPP's cubic cells, which the forward sum comes
+    nearest)."""
+    if ksize == 4 and dtype in _IPP_CUBIC_TYPES and channels in _VECTOR_CHANNELS:
+        return 0
+    if dtype == np.float32:
+        return 4
+    if dtype == np.int16 or (ksize == 4 and dtype in (np.uint8, np.uint16)):
+        return 8
+    return 0
+
+
+def _vertical(rows: np.ndarray, yi: np.ndarray, yw: np.ndarray, acc_t, lanes: int):
+    """The vertical pass of a separable resize in ``acc_t``: forward, or
+    reversed on the first ``n - n % lanes`` elements of each output row."""
+    out = (rows[yi[:, 0]] * yw[:, 0, None, None]).astype(acc_t)
+    for j in range(1, yi.shape[1]):
+        out = (out + rows[yi[:, j]] * yw[:, j, None, None]).astype(acc_t)
+    if lanes:
+        rev = (rows[yi[:, -1]] * yw[:, -1, None, None]).astype(acc_t)
+        for j in range(yi.shape[1] - 2, -1, -1):
+            rev = (rows[yi[:, j]] * yw[:, j, None, None] + rev).astype(acc_t)
+        flat, flat_rev = out.reshape(len(out), -1), rev.reshape(len(out), -1)
+        vec = flat.shape[1] - flat.shape[1] % lanes
+        flat[:, :vec] = flat_rev[:, :vec]
+    return out
+
+
 def _separable(image: np.ndarray, out_h: int, out_w: int, ksize: int,
                native: bool) -> np.ndarray:
     h, w = image.shape[:2]
     xi, xw = _kernel_taps(w, out_w, ksize)
     yi, yw = _kernel_taps(h, out_h, ksize)
-    if image.dtype == np.uint8 and ksize == 8:
-        # OpenCV's fixed point. Every sum is an integer below 2**53, so two
-        # float64 matrix products give it exactly (the C++ sums in int64).
+    lanes = _vector_lanes(image.dtype, ksize, image.shape[2])
+    if image.dtype == np.uint8 and (ksize == 8 or lanes):
+        # OpenCV's fixed point: 11-bit weights, exact integer sums, then
+        # (total + (1 << 21)) >> 22, or (cubic) the vertical vector pass in
+        # float32 on weights / 2**22, rounded. Every integer sum is below
+        # 2**53, so two float64 matrix products give it exactly (the C++
+        # sums in int64).
+        ax = np.rint(xw * _F32(_COEF_SCALE)).astype(np.int32)
+        by = np.rint(yw * _F32(_COEF_SCALE)).astype(np.int32)
         if native:
-            return image_ops.resize_lanczos_u8(
-                image, xi, np.rint(xw * _F32(_COEF_SCALE)).astype(np.int32),
-                yi, np.rint(yw * _F32(_COEF_SCALE)).astype(np.int32))
-        wx = _dense(xi, np.rint(xw * _F32(_COEF_SCALE)), w)
-        wy = _dense(yi, np.rint(yw * _F32(_COEF_SCALE)), h)
+            return image_ops.resize_fixed_u8(image, xi, ax, yi, by, lanes)
         c = image.shape[2]
-        rows = image.astype(np.float64).transpose(0, 2, 1) @ wx.T  # (h, c, out_w)
-        total = (wy @ rows.reshape(h, c * out_w)).reshape(out_h, c, out_w)
-        total = total.astype(np.int64).transpose(0, 2, 1)
-        return np.clip((total + (1 << 21)) >> 22, 0, 255).astype(np.uint8)
-    acc_t = _F32 if image.dtype == np.uint8 else image.dtype.type
+        rows = image.astype(np.float64).transpose(0, 2, 1) @ _dense(xi, ax, w).T  # (h, c, out_w)
+        rows = rows.transpose(0, 2, 1).reshape(h, out_w * c)
+        total = (_dense(yi, by, h) @ rows).astype(np.int64)
+        out = np.clip((total + (1 << 21)) >> 22, 0, 255)
+        if lanes:
+            scale = _F32(1.0 / (_COEF_SCALE * _COEF_SCALE))
+            beta = (by.astype(_F32) * scale).astype(_F32)
+            vec = _vertical(rows.astype(_F32)[..., None], yi, beta, _F32, lanes)[..., 0]
+            n = out.shape[1] - out.shape[1] % lanes
+            out[:, :n] = np.clip(np.rint(vec[:, :n]), 0, 255)
+        return out.reshape(out_h, out_w, c).astype(np.uint8)
+    acc_t = _work_type(image.dtype)
     xw, yw = xw.astype(acc_t), yw.astype(acc_t)
     if native:
-        return image_ops.resize_separable(image, xi, xw, yi, yw)
+        return image_ops.resize_separable(image, xi, xw, yi, yw, lanes=lanes)
     src = image.astype(acc_t)
     rows = (src[:, xi[:, 0]] * xw[None, :, 0, None]).astype(acc_t)
     for j in range(1, ksize):
         rows = (rows + src[:, xi[:, j]] * xw[None, :, j, None]).astype(acc_t)
-    out = (rows[yi[:, 0]] * yw[:, 0, None, None]).astype(acc_t)
-    for j in range(1, ksize):
-        out = (out + rows[yi[:, j]] * yw[:, j, None, None]).astype(acc_t)
-    if image.dtype == np.uint8:
-        return np.clip(np.rint(out), 0, 255).astype(np.uint8)
-    return out
+    return _store(_vertical(rows, yi, yw, acc_t, lanes), image.dtype)
 
 
 _MODES = (INTER_NEAREST, INTER_LINEAR, INTER_CUBIC, INTER_AREA, INTER_LANCZOS4)
+_WIDE_INTEGERS = (np.dtype(np.int64), np.dtype(np.uint64))
+# The types OpenCV warps on its remap path at every channel count.
+_REMAP_TYPES = (np.dtype(np.int16), np.dtype(np.float64))
 
 
 def _resize(image: np.ndarray, height: int, width: int, interpolation: int,
@@ -356,8 +484,12 @@ def _resize(image: np.ndarray, height: int, width: int, interpolation: int,
     """``resize_image`` through the native C++ (``native``) or NumPy."""
     if interpolation not in _MODES:
         raise ValueError(f"unknown interpolation mode {interpolation}")
-    if image.dtype != np.uint8 and image.dtype.kind != "f":
-        raise NotImplementedError(f"resize of {image.dtype} images is not ported: uint8 or float")
+    if interpolation == INTER_NEAREST and image.dtype in _WIDE_INTEGERS:
+        image = image.astype(np.int32)  # cv2's binding takes 64-bit integers as int32
+    if image.dtype not in _INTEGER_TYPES and image.dtype.kind != "f" and not (
+            interpolation == INTER_NEAREST and image.dtype in image_ops.NEAREST_DTYPES):
+        raise NotImplementedError(f"resize of {image.dtype} images is not ported: uint8, "
+                                  f"uint16, int16 or float (and more types in INTER_NEAREST)")
     squeeze = image.ndim == 2 or image.shape[2] == 1
     planes = image.reshape(image.shape[0], image.shape[1], -1)
     if native:
@@ -387,16 +519,20 @@ def _resize(image: np.ndarray, height: int, width: int, interpolation: int,
 def resize_image(image: np.ndarray, height: int, width: int,
                  interpolation: int = INTER_LINEAR) -> np.ndarray:
     """``cv2.resize(image, (width, height), interpolation=interpolation)``
-    for an (H, W) or (H, W, C) uint8 or float image; see the module
-    docstring for what is exact. An (H, W, 1) image comes back (h, w), as
-    from OpenCV.
+    for an (H, W) or (H, W, C) image of a type OpenCV takes in that mode;
+    see the module docstring for the types and what is exact. An (H, W, 1)
+    image comes back (h, w), as from OpenCV. Another type raises
+    ``NotImplementedError``.
 
-    uint8, float32 and float64 images go through the host C++
+    uint8, uint16, int16, float32 and float64 images (and in
+    ``INTER_NEAREST`` int8, uint32, int32 and bool) go through the host C++
     (``native.image_ops``); another float type (float16) through NumPy
     (:func:`resize_image_numpy`). Both give the same result; a failed g++
     build raises."""
     image = np.asarray(image)
-    return _resize(image, height, width, interpolation, image.dtype in image_ops.DTYPES)
+    native = image.dtype in (image_ops.NEAREST_DTYPES if interpolation == INTER_NEAREST
+                             else image_ops.DTYPES)
+    return _resize(image, height, width, interpolation, native)
 
 
 def resize_image_numpy(image: np.ndarray, height: int, width: int,
@@ -445,21 +581,116 @@ def _fma(a, b, c, dtype):
     return (np.asarray(a, np.float64) * np.asarray(b, np.float64) + c).astype(dtype)
 
 
+# OpenCV's warpAffine fixed point: AB_BITS, INTER_BITS, INTER_TAB_SIZE.
+_AB_BITS = 10
+_INTER_BITS = 5
+_TAB = 1 << _INTER_BITS
+_REMAP_COEF_SCALE = 1 << 15  # INTER_REMAP_COEF_SCALE: the uint8 table's 15-bit weights
+
+
+def _bilinear_table(fixed: bool) -> np.ndarray:
+    """OpenCV's (32 * 32, 4) bilinear weights of the remap path, row
+    ``fy * 32 + fx`` for the fractions ``fy / 32`` and ``fx / 32``: float32
+    products of ``1 - f`` and ``f`` (exact), or for uint8 those times 2**15
+    as int32. OpenCV saturates the origin's 32768 to 32767 and adds 1 to
+    its last weight; no uint8 sum tells the two apart."""
+    f = np.arange(_TAB, dtype=_F32) * _F32(1.0 / _TAB)
+    one = np.stack([_F32(1.0) - f, f], -1)  # (32, 2): 1 - f, f
+    tab = (one[:, None, :, None] * one[None, :, None, :]).reshape(_TAB * _TAB, 4)
+    return (tab * _REMAP_COEF_SCALE).astype(np.int32) if fixed else tab.astype(_F32)
+
+
+_BILINEAR = {True: _bilinear_table(True), False: _bilinear_table(False)}
+
+
+def _cv_round_i32(v: np.ndarray) -> np.ndarray:
+    """OpenCV's ``saturate_cast<int>`` of a double: rounded half to even;
+    a value outside int32 (or NaN) gives INT_MIN, as the SSE conversion."""
+    v = np.asarray(v, np.float64)
+    ok = np.abs(v) < 2.0 ** 31
+    return np.where(ok, np.rint(np.where(ok, v, 0.0)), -(2.0 ** 31)).astype(np.int64).astype(np.int32)
+
+
+def _remap_positions(inv: np.ndarray, out_h: int, out_w: int):
+    """warpAffine's source positions in 1/1024 pixel: each output row's
+    start plus the round delta (x0, y0) and each column's step (dx, dy),
+    int32, as OpenCV computes them in double."""
+    scale = float(1 << _AB_BITS)
+    delta = (1 << _AB_BITS) // _TAB // 2
+    xs, ys = np.arange(out_w, dtype=np.float64), np.arange(out_h, dtype=np.float64)
+    dx, dy = _cv_round_i32(inv[0] * xs * scale), _cv_round_i32(inv[3] * xs * scale)
+    x0 = _cv_round_i32((inv[1] * ys + inv[2]) * scale).astype(np.int64) + delta
+    y0 = _cv_round_i32((inv[4] * ys + inv[5]) * scale).astype(np.int64) + delta
+    return x0.astype(np.int32), y0.astype(np.int32), dx, dy
+
+
+def _remap_cval(border: np.ndarray, dtype: np.dtype, c: int) -> np.ndarray:
+    """The remap path's border: OpenCV's 4-value scalar, channel ``k``
+    taking value ``k & 3``, saturated to the image's type."""
+    values = border[np.arange(c) & 3]
+    return values.astype(dtype) if dtype.kind == "f" else _store(values, dtype)
+
+
+def _warp_remap(planes: np.ndarray, inv: np.ndarray, out_h: int, out_w: int,
+                border: np.ndarray, native: bool) -> np.ndarray:
+    """OpenCV's remap-path warp (see ``warp_affine``): positions in 1/32
+    pixel, weights from its 32 x 32 table."""
+    h, w, c = planes.shape
+    dtype = planes.dtype
+    x0, y0, dx, dy = _remap_positions(inv, out_h, out_w)
+    table = _BILINEAR[dtype == np.uint8]
+    cval = _remap_cval(border, dtype, c)
+    if native:
+        return image_ops.warp_remap(np.ascontiguousarray(planes), x0, y0, dx, dy, table, cval)
+
+    def wrap32(v):
+        return ((v.astype(np.int64) + 2 ** 31) % 2 ** 32 - 2 ** 31) >> (_AB_BITS - _INTER_BITS)
+
+    xx = wrap32(x0[:, None].astype(np.int64) + dx[None, :])
+    yy = wrap32(y0[:, None].astype(np.int64) + dy[None, :])
+    sx = np.clip(xx >> _INTER_BITS, -32768, 32767)
+    sy = np.clip(yy >> _INTER_BITS, -32768, 32767)
+    weights = table[(yy & (_TAB - 1)) * _TAB + (xx & (_TAB - 1))]
+    work = np.int64 if dtype == np.uint8 else (np.float64 if dtype == np.float64 else _F32)
+
+    def pixel(py, px):
+        inside = (py >= 0) & (py < h) & (px >= 0) & (px < w)
+        value = planes[np.clip(py, 0, h - 1), np.clip(px, 0, w - 1)]
+        return np.where(inside[..., None], value, cval).astype(work)
+
+    total = None
+    for n, (py, px) in enumerate(((sy, sx), (sy, sx + 1), (sy + 1, sx), (sy + 1, sx + 1))):
+        term = (pixel(py, px) * weights[..., n, None].astype(work)).astype(work)
+        total = term if total is None else (total + term).astype(work)
+    if dtype == np.uint8:
+        out = np.clip((total + (1 << 14)) >> 15, 0, 255).astype(np.uint8)
+    else:
+        out = _store(total, dtype)
+    outside = (sx >= w) | (sx + 1 < 0) | (sy >= h) | (sy + 1 < 0)
+    return np.where(outside[..., None], cval, out)
+
+
 def _warp(image: np.ndarray, m, dsize, border_value, native: bool) -> np.ndarray:
     """``warp_affine`` through the native C++ (``native``) or NumPy."""
-    if image.dtype != np.uint8 and image.dtype.kind != "f":
-        raise NotImplementedError(f"warp of {image.dtype} images is not ported: uint8 or float")
-    squeeze = image.ndim == 2
+    if image.dtype not in _INTEGER_TYPES and image.dtype.kind != "f":
+        raise NotImplementedError(f"warp of {image.dtype} images is not ported: uint8, uint16, "
+                                  f"int16 or float")
+    squeeze = image.ndim == 2 or image.shape[2] == 1  # OpenCV returns (h, w)
     planes = image.reshape(image.shape[0], image.shape[1], -1)
     h, w, c = planes.shape
     out_w, out_h = int(dsize[0]), int(dsize[1])
-    work = _F32 if image.dtype == np.uint8 else image.dtype.type
-    inv = _invert_affine(m).astype(work)
     # OpenCV's border is a 4-value scalar padded with zeros.
     values = np.atleast_1d(np.asarray(border_value, np.float64))
     border = np.zeros(max(c, 4), np.float64)
     border[: values.size] = values
-    border = border[:c].astype(work)
+    if image.dtype in _REMAP_TYPES or (c not in _VECTOR_CHANNELS
+                                       and image.dtype in image_ops.DTYPES):
+        out = _warp_remap(planes, _invert_affine(m), out_h, out_w, border[:4], native)
+        return out[..., 0] if squeeze else out
+    work = _work_type(image.dtype)
+    inv = _invert_affine(m).astype(work)
+    # Saturated to the image's type first, as OpenCV's.
+    border = _store(border[:c], image.dtype).astype(work)
     if native:
         out = image_ops.warp_affine(np.ascontiguousarray(planes), inv, border, out_h, out_w)
         return out[..., 0] if squeeze else out
@@ -482,24 +713,21 @@ def _warp(image: np.ndarray, m, dsize, border_value, native: bool) -> np.ndarray
     p10, p11 = pixel(sy + 1, sx), pixel(sy + 1, sx + 1)
     top = _fma(ax, (p01 - p00).astype(work), p00, work)
     bottom = _fma(ax, (p11 - p10).astype(work), p10, work)
-    out = _fma(ay, (bottom - top).astype(work), top, work)
-    if image.dtype == np.uint8:
-        out = np.clip(np.rint(out), 0, 255).astype(np.uint8)
-    else:
-        out = out.astype(image.dtype)
+    out = _store(_fma(ay, (bottom - top).astype(work), top, work), image.dtype)
     return out[..., 0] if squeeze else out
 
 
 def warp_affine(image: np.ndarray, m, dsize, border_value=0) -> np.ndarray:
     """``cv2.warpAffine(image, m, dsize, flags=INTER_LINEAR,
     borderMode=BORDER_CONSTANT, borderValue=border_value)`` for an (H, W) or
-    (H, W, C) uint8 or float image; ``dsize`` is (width, height), as in
-    OpenCV. See the module docstring for what is exact.
+    (H, W, C) uint8, uint16, int16 or float image; ``dsize`` is (width,
+    height), as in OpenCV. See the module docstring for OpenCV's two paths
+    and what is exact. Another type raises ``NotImplementedError``.
 
-    uint8, float32 and float64 images go through the host C++
-    (``native.image_ops``); another float type (float16) through NumPy
-    (:func:`warp_affine_numpy`). Both give the same result; a failed g++
-    build raises."""
+    uint8, uint16, int16, float32 and float64 images go through the host
+    C++ (``native.image_ops``); another float type (float16, always on the
+    unrounded path) through NumPy (:func:`warp_affine_numpy`). Both give the
+    same result; a failed g++ build raises."""
     image = np.asarray(image)
     return _warp(image, m, dsize, border_value, image.dtype in image_ops.DTYPES)
 

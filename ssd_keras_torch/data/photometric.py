@@ -20,8 +20,8 @@ are NumPy:
   (blocks of 32 pixels, as OpenCV's AVX2 build runs it) and rounded in its
   scalar loop (the last ``width % 32`` pixels of each row). Exact over every
   (H, S, V) triple, H up to 255 included, in either loop.
-* ``RGB->GRAY`` on uint8: ``(R*9798 + G*19235 + B*3735 + (1 << 14)) >> 15``.
-  Exact.
+* ``RGB->GRAY`` on uint8 and uint16: ``(R*9798 + G*19235 + B*3735 + (1 <<
+  14)) >> 15``. Exact.
 * The float32 forms of the three (H in degrees [0, 360), S in [0, 1]; gray
   ``0.299 R + 0.587 G + 0.114 B``): within a few float32 ulps of OpenCV.
 * ``cv2.LUT`` is ``table[image]``; ``cv2.equalizeHist`` is the cumulative
@@ -147,10 +147,10 @@ def _hsv_to_rgb_f32(image: np.ndarray) -> np.ndarray:
 
 
 def _rgb_to_gray(image: np.ndarray) -> np.ndarray:
-    if image.dtype == np.uint8:
+    if image.dtype.kind == "u":  # uint8 and uint16: OpenCV's 15-bit weights
         x = image.astype(np.int64)
         return ((x[..., 0] * 9798 + x[..., 1] * 19235 + x[..., 2] * 3735 + (1 << 14))
-                >> 15).astype(np.uint8)
+                >> 15).astype(image.dtype)
     return (image[..., 0] * _F32(0.299) + image[..., 1] * _F32(0.587)
             + image[..., 2] * _F32(0.114)).astype(_F32)
 
@@ -162,10 +162,11 @@ _CONVERSIONS = {
 }
 
 
-def _checked(image) -> np.ndarray:
+def _checked(image, to: str) -> np.ndarray:
     image = np.asarray(image)
-    if image.dtype not in (np.uint8, np.float32):
-        raise TypeError(f"cvt_color takes uint8 or float32 images, got {image.dtype}")
+    if image.dtype not in (np.uint8, np.float32) and not (to == "GRAY" and image.dtype == np.uint16):
+        raise TypeError(f"cvt_color takes uint8 or float32 images (RGB->GRAY also uint16), "
+                        f"got {image.dtype}")
     if image.ndim != 3 or image.shape[2] != 3:
         raise ValueError(f"cvt_color takes (H, W, 3) images, got shape {image.shape}")
     return image
@@ -173,19 +174,20 @@ def _checked(image) -> np.ndarray:
 
 def cvt_color(image: np.ndarray, current: str, to: str) -> np.ndarray:
     """``cv2.cvtColor`` between RGB, HSV and GRAY for an (H, W, 3) uint8 or
-    float32 image (see the module docstring for the ranges and what is
-    exact), through the host C++ (``native.image_ops``). Equal bit for bit
+    float32 image, and RGB->GRAY of a uint16 one (see the module docstring
+    for the ranges and what is exact), through the host C++
+    (``native.image_ops``). Equal bit for bit
     to :func:`cvt_color_numpy`; a failed g++ build raises."""
-    image = _checked(image)
+    image = _checked(image, to)
     return image_ops.cvt_color(np.ascontiguousarray(image), current, to, _SDIV, _HDIV)
 
 
 def cvt_color_numpy(image: np.ndarray, current: str, to: str) -> np.ndarray:
     """:func:`cvt_color` in NumPy alone: the plain version the native C++
     is held to, bit for bit."""
-    image = _checked(image)
-    u8, f32 = _CONVERSIONS[(current, to)]
-    return u8(image) if image.dtype == np.uint8 else f32(image)
+    image = _checked(image, to)
+    integer, f32 = _CONVERSIONS[(current, to)]
+    return f32(image) if image.dtype == np.float32 else integer(image)
 
 
 def equalize_hist(channel: np.ndarray) -> np.ndarray:

@@ -11,8 +11,10 @@
 // per-tap indices and weights come in from Python, computed there as the
 // NumPy functions compute them, so no sine or rounding is redone here.
 //
-// dtype codes: 0 uint8, 1 float32, 2 float64. uint8 images accumulate in
-// float32 (or in integers where NumPy does); float images in their own type.
+// dtype codes: 0 uint8, 1 float32, 2 float64, 3 uint16, 4 int16. Integer
+// images accumulate in float32 (or in integers where NumPy does) and are
+// rounded half to even and saturated to their type, as OpenCV's
+// saturate_cast; float images accumulate in their own type.
 //
 // Built at first use by native/image_ops.py with g++ -O3 -shared -fPIC
 // -ffp-contract=off -fno-tree-vectorize (see IMAGE_OPS_FLAGS there for why),
@@ -22,6 +24,7 @@
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <limits>
 #include <type_traits>
 #include <vector>
 
@@ -66,14 +69,35 @@ inline std::vector<char> rows_read(const int64_t* yi, int64_t n, int64_t h) {
   return need;
 }
 
-template <typename T, typename A>
-inline T store(A v) {
-  return static_cast<T>(v);
+// np.clip(np.rint(v), min, max).astype(T) for the 16-bit types.
+template <typename T>
+inline T round_saturate(float v) {
+  const float r = std::nearbyint(v);
+  if (!(r > float(std::numeric_limits<T>::min()))) return std::numeric_limits<T>::min();
+  if (r >= float(std::numeric_limits<T>::max())) return std::numeric_limits<T>::max();
+  return static_cast<T>(r);
 }
 
-template <>
-inline uint8_t store<uint8_t, float>(float v) {
-  return round_u8(v);
+template <typename T, typename A>
+inline T store(A v) {
+  if constexpr (std::is_same<T, uint8_t>::value)
+    return round_u8(v);
+  else if constexpr (std::is_integral<T>::value)
+    return round_saturate<T>(v);
+  else
+    return static_cast<T>(v);
+}
+
+// Runs f(T(), A()) for the image type of a dtype code and its accumulator.
+template <typename F>
+inline void by_dtype(int dtype, F f) {
+  switch (dtype) {
+    case 0: f(uint8_t(), float()); break;
+    case 1: f(float(), float()); break;
+    case 2: f(double(), double()); break;
+    case 3: f(uint16_t(), float()); break;
+    default: f(int16_t(), float()); break;
+  }
 }
 
 // ------------------------------------------------------------------------- //
@@ -134,7 +158,7 @@ void linear_u8(const uint8_t* src, int64_t h, int64_t w, int64_t c_any, const in
 template <typename T, typename A, int C>
 void separable(const T* src, int64_t h, int64_t w, int64_t c_any, const int64_t* xi,
                const A* xw, int64_t kx, int64_t out_w, const int64_t* yi, const A* yw,
-               int64_t ky, int64_t out_h, bool x_from_zero, T* dst) {
+               int64_t ky, int64_t out_h, bool x_from_zero, int64_t lanes, T* dst) {
   const int64_t c = C > 0 ? C : c_any;
   constexpr int n = C > 0 ? C : 1;  // channels summed side by side
   const int64_t row_len = out_w * c;
@@ -166,28 +190,42 @@ void separable(const T* src, int64_t h, int64_t w, int64_t c_any, const int64_t*
       }
     }
   }
+  // OpenCV's vertical vector pass: the first `vec` elements sum in reverse.
+  const int64_t vec = lanes > 0 ? row_len - row_len % lanes : 0;
   std::vector<A> line(static_cast<size_t>(row_len));
   for (int64_t oy = 0; oy < out_h; ++oy) {
     const int64_t* iy = yi + oy * ky;
     const A* wy = yw + oy * ky;
     const A* r0 = rows.data() + iy[0] * row_len;
-    for (int64_t k = 0; k < row_len; ++k) line[k] = r0[k] * wy[0];
+    for (int64_t k = vec; k < row_len; ++k) line[k] = r0[k] * wy[0];
     for (int64_t j = 1; j < ky; ++j) {
       const A* rj = rows.data() + iy[j] * row_len;
       const A wj = wy[j];
-      for (int64_t k = 0; k < row_len; ++k) line[k] = line[k] + rj[k] * wj;
+      for (int64_t k = vec; k < row_len; ++k) line[k] = line[k] + rj[k] * wj;
+    }
+    if (vec > 0) {
+      const A* rl = rows.data() + iy[ky - 1] * row_len;
+      for (int64_t k = 0; k < vec; ++k) line[k] = rl[k] * wy[ky - 1];
+      for (int64_t j = ky - 2; j >= 0; --j) {
+        const A* rj = rows.data() + iy[j] * row_len;
+        const A wj = wy[j];
+        for (int64_t k = 0; k < vec; ++k) line[k] = rj[k] * wj + line[k];
+      }
     }
     T* out = dst + oy * row_len;
     for (int64_t k = 0; k < row_len; ++k) out[k] = store<T, A>(line[k]);
   }
 }
 
-// geometric.py:_separable on uint8 with Lanczos4: OpenCV's 11-bit integer
-// weights, sums exact in int64, then (total + (1 << 21)) >> 22.
+// geometric.py:_separable on uint8, Lanczos4 and cubic: OpenCV's 11-bit
+// integer weights, sums exact in int64, then (total + (1 << 21)) >> 22. With
+// `lanes`, the first row_len - row_len % lanes elements of each output row
+// take OpenCV's vertical vector pass instead: float32, the taps in reverse,
+// on the weights times 2**-22, rounded half to even and saturated.
 template <int C>
-void lanczos_u8(const uint8_t* src, int64_t h, int64_t w, int64_t c_any, const int64_t* xi,
-                const int32_t* xw, int64_t kx, int64_t out_w, const int64_t* yi,
-                const int32_t* yw, int64_t ky, int64_t out_h, uint8_t* dst) {
+void fixed_u8(const uint8_t* src, int64_t h, int64_t w, int64_t c_any, const int64_t* xi,
+              const int32_t* xw, int64_t kx, int64_t out_w, const int64_t* yi,
+              const int32_t* yw, int64_t ky, int64_t out_h, int64_t lanes, uint8_t* dst) {
   const int64_t c = C > 0 ? C : c_any;
   constexpr int n = C > 0 ? C : 1;
   const int64_t row_len = out_w * c;
@@ -211,7 +249,10 @@ void lanczos_u8(const uint8_t* src, int64_t h, int64_t w, int64_t c_any, const i
       }
     }
   }
+  const int64_t vec = lanes > 0 ? row_len - row_len % lanes : 0;
+  const float scale = 1.0f / 4194304.0f;  // 2**-22
   std::vector<int64_t> line(static_cast<size_t>(row_len));
+  std::vector<float> fline(static_cast<size_t>(vec));
   for (int64_t oy = 0; oy < out_h; ++oy) {
     const int64_t* iy = yi + oy * ky;
     const int32_t* wy = yw + oy * ky;
@@ -219,49 +260,67 @@ void lanczos_u8(const uint8_t* src, int64_t h, int64_t w, int64_t c_any, const i
     for (int64_t j = 0; j < ky; ++j) {
       const int64_t* rj = rows.data() + iy[j] * row_len;
       const int64_t wj = wy[j];
-      for (int64_t k = 0; k < row_len; ++k) line[k] += rj[k] * wj;
+      for (int64_t k = vec; k < row_len; ++k) line[k] += rj[k] * wj;
+    }
+    if (vec > 0) {
+      const int64_t* rl = rows.data() + iy[ky - 1] * row_len;
+      const float bl = float(wy[ky - 1]) * scale;
+      for (int64_t k = 0; k < vec; ++k) fline[k] = float(rl[k]) * bl;
+      for (int64_t j = ky - 2; j >= 0; --j) {
+        const int64_t* rj = rows.data() + iy[j] * row_len;
+        const float bj = float(wy[j]) * scale;
+        for (int64_t k = 0; k < vec; ++k) fline[k] = float(rj[k]) * bj + fline[k];
+      }
     }
     uint8_t* out = dst + oy * row_len;
-    for (int64_t k = 0; k < row_len; ++k) {
+    for (int64_t k = 0; k < vec; ++k) out[k] = round_u8(fline[k]);
+    for (int64_t k = vec; k < row_len; ++k) {
       const int64_t v = (line[k] + (int64_t(1) << 21)) >> 22;
       out[k] = static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
     }
   }
 }
 
-// geometric.py:_halve (halve) and the integer-factor path of _area_shrink:
-// the mean of each iy x ix block. uint8: (sum + 2) >> 2 for the halving, else
-// the int64 sum times float32(1 / (ix * iy)), rounded. Floats add the block
-// row by row (from 0 on the area path, from the first pixel when halving)
-// and multiply by T(1 / (ix * iy)).
-template <typename T>
+// geometric.py:_halve (halve) and _block_mean: the mean of each iy x ix
+// block. Integer images: (sum + 2) >> 2 for the halving (OpenCV's vector
+// path), else uint8 the int64 sum, 16-bit the float32 sum, times float32(1 /
+// (ix * iy)), rounded. Floats: when halving, ((a + b) + c) +
+// d, or with `lanes` (a + b) + (c + d) on the first row_len - row_len % lanes
+// elements of each output row; on the area path the block's pixels in row
+// order, four at a time added among themselves, then to the total from 0
+// (OpenCV's unrolled loop); times float32(1 / (ix * iy)).
+template <typename T, typename A>
 void block_mean(const T* src, int64_t w, int64_t c, int64_t iy, int64_t ix, int64_t out_h,
-                int64_t out_w, bool halve, T* dst) {
-  const T inv = T(1.0 / double(ix * iy));
+                int64_t out_w, bool halve, int64_t lanes, T* dst) {
+  const A inv = A(1.0f / float(ix * iy));  // OpenCV's float scale, for float64 too
+  const int64_t row_len = out_w * c;
+  const int64_t vec = lanes > 0 ? row_len - row_len % lanes : 0;
+  const int64_t area = ix * iy;
   for (int64_t oy = 0; oy < out_h; ++oy)
     for (int64_t ox = 0; ox < out_w; ++ox)
       for (int64_t ch = 0; ch < c; ++ch) {
         const T* p = src + (oy * iy * w + ox * ix) * c + ch;
-        T acc = halve ? p[0] : T(0) + p[0];
-        for (int64_t a = 0; a < iy; ++a)
-          for (int64_t b = (a == 0 ? 1 : 0); b < ix; ++b) acc = acc + p[(a * w + b) * c];
-        dst[(oy * out_w + ox) * c + ch] = acc * inv;
-      }
-}
-
-template <>
-void block_mean<uint8_t>(const uint8_t* src, int64_t w, int64_t c, int64_t iy, int64_t ix,
-                         int64_t out_h, int64_t out_w, bool halve, uint8_t* dst) {
-  const float inv = float(1.0 / double(ix * iy));
-  for (int64_t oy = 0; oy < out_h; ++oy)
-    for (int64_t ox = 0; ox < out_w; ++ox)
-      for (int64_t ch = 0; ch < c; ++ch) {
-        const uint8_t* p = src + (oy * iy * w + ox * ix) * c + ch;
-        int64_t total = 0;
-        for (int64_t a = 0; a < iy; ++a)
-          for (int64_t b = 0; b < ix; ++b) total += p[(a * w + b) * c];
-        dst[(oy * out_w + ox) * c + ch] =
-            halve ? static_cast<uint8_t>((total + 2) >> 2) : round_u8(float(total) * inv);
+        T& out = dst[(oy * out_w + ox) * c + ch];
+        if (std::is_integral<T>::value && (halve || std::is_same<T, uint8_t>::value)) {
+          int64_t total = 0;
+          for (int64_t a = 0; a < iy; ++a)
+            for (int64_t b = 0; b < ix; ++b) total += p[(a * w + b) * c];
+          out = halve ? static_cast<T>((total + 2) >> 2) : store<T, A>(A(total) * inv);
+          continue;
+        }
+        auto tap = [&](int64_t k) { return A(p[((k / ix) * w + k % ix) * c]); };
+        A acc;
+        if (halve && ox * c + ch < vec)
+          acc = (tap(0) + tap(1)) + (tap(2) + tap(3));
+        else if (halve)
+          acc = ((tap(0) + tap(1)) + tap(2)) + tap(3);
+        else {
+          acc = A(0);
+          int64_t k = 0;
+          for (; k + 3 < area; k += 4) acc = acc + (((tap(k) + tap(k + 1)) + tap(k + 2)) + tap(k + 3));
+          for (; k < area; ++k) acc = acc + tap(k);
+        }
+        out = store<T, A>(acc * inv);
       }
 }
 
@@ -309,6 +368,55 @@ void warp(const T* src, int64_t h, int64_t w, int64_t c_any, const W* inv, const
       }
     }
   }
+}
+
+// geometric.py:_warp_remap: OpenCV's remap-path bilinear, which its
+// warpAffine takes for float64 and int16 images and for any image of other
+// than 1, 3 or 4 channels. Each source position is in 1/32 pixel: X = (x0[oy]
+// + dx[ox]) >> 5 (int32 sums, as OpenCV's), its pixel X >> 5 saturated to
+// int16 and its fraction X & 31. The four weights come from `tab`, OpenCV's
+// 32 x 32 bilinear table (int32 15-bit weights for uint8, else float32), and
+// are summed as v00 * w0 + v01 * w1 + v10 * w2 + v11 * w3 in W: int32 for
+// uint8 (then (s + (1 << 14)) >> 15), float32 for uint16, int16 and float32,
+// float64 for float64. A neighbour outside the image takes cval; a pixel
+// whose four neighbours all lie outside is cval itself.
+inline int64_t sat_i16(int32_t v) { return v < -32768 ? -32768 : (v > 32767 ? 32767 : v); }
+
+template <typename T, typename W, typename Tab, int C>
+void warp_remap(const T* src, int64_t h, int64_t w, int64_t c_any, const int32_t* x0,
+                const int32_t* y0, const int32_t* dx, const int32_t* dy, const Tab* tab,
+                const T* cval, int64_t out_h, int64_t out_w, T* dst) {
+  const int64_t c = C > 0 ? C : c_any;
+  for (int64_t oy = 0; oy < out_h; ++oy)
+    for (int64_t ox = 0; ox < out_w; ++ox) {
+      const int32_t X = int32_t(uint32_t(x0[oy]) + uint32_t(dx[ox])) >> 5;
+      const int32_t Y = int32_t(uint32_t(y0[oy]) + uint32_t(dy[ox])) >> 5;
+      const int64_t sx = sat_i16(X >> 5), sy = sat_i16(Y >> 5);
+      const Tab* wt = tab + ((Y & 31) * 32 + (X & 31)) * 4;
+      T* out = dst + (oy * out_w + ox) * c;
+      if (sx >= w || sx + 1 < 0 || sy >= h || sy + 1 < 0) {
+        for (int64_t ch = 0; ch < c; ++ch) out[ch] = cval[ch];
+        continue;
+      }
+      const T* nb[4];
+      for (int n = 0; n < 4; ++n) {
+        const int64_t yy = sy + (n >> 1), xx = sx + (n & 1);
+        nb[n] = yy >= 0 && yy < h && xx >= 0 && xx < w ? src + (yy * w + xx) * c : nullptr;
+      }
+      for (int64_t ch = 0; ch < c; ++ch) {
+        W sum = W(0);
+        for (int n = 0; n < 4; ++n) {
+          const W term = W(nb[n] ? nb[n][ch] : cval[ch]) * W(wt[n]);
+          sum = n == 0 ? term : sum + term;
+        }
+        if constexpr (std::is_same<T, uint8_t>::value) {
+          const int32_t v = (sum + (1 << 14)) >> 15;
+          out[ch] = static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
+        } else {
+          out[ch] = store<T, W>(sum);
+        }
+      }
+    }
 }
 
 // ------------------------------------------------------------------------- //
@@ -420,11 +528,12 @@ void hsv_to_rgb_f32(const float* src, int64_t n, float* dst) {
     hsv_sectors<false>(src[3 * i], src[3 * i + 1], src[3 * i + 2], hscale, dst + 3 * i);
 }
 
-// photometric.py:_rgb_to_gray
-void rgb_to_gray_u8(const uint8_t* src, int64_t n, uint8_t* dst) {
+// photometric.py:_rgb_to_gray, uint8 and uint16
+template <typename T>
+void rgb_to_gray_int(const T* src, int64_t n, T* dst) {
   for (int64_t i = 0; i < n; ++i)
-    dst[i] = static_cast<uint8_t>((int64_t(src[3 * i]) * 9798 + int64_t(src[3 * i + 1]) * 19235 +
-                                   int64_t(src[3 * i + 2]) * 3735 + (1 << 14)) >> 15);
+    dst[i] = static_cast<T>((int64_t(src[3 * i]) * 9798 + int64_t(src[3 * i + 1]) * 19235 +
+                             int64_t(src[3 * i + 2]) * 3735 + (1 << 14)) >> 15);
 }
 
 void rgb_to_gray_f32(const float* src, int64_t n, float* dst) {
@@ -452,84 +561,97 @@ void ssd_resize_linear_u8(const uint8_t* src, int64_t h, int64_t w, int64_t c, c
   });
 }
 
-// Weights are float32 for uint8 and float32 images, float64 for float64.
+// Weights are float64 for float64 images, float32 for the others. lanes: 0,
+// or the step of OpenCV's vertical vector pass (separable()).
 void ssd_resize_separable(int dtype, const void* src, int64_t h, int64_t w, int64_t c,
                           const int64_t* xi, const void* xw, int64_t kx, int64_t out_w,
                           const int64_t* yi, const void* yw, int64_t ky, int64_t out_h,
-                          int x_from_zero, void* dst) {
-  by_channels(c, [&](auto k) {
-    constexpr int C = decltype(k)::value;
-    if (dtype == 0)
-      separable<uint8_t, float, C>(static_cast<const uint8_t*>(src), h, w, c, xi,
-                                   static_cast<const float*>(xw), kx, out_w, yi,
-                                   static_cast<const float*>(yw), ky, out_h, x_from_zero != 0,
-                                   static_cast<uint8_t*>(dst));
-    else if (dtype == 1)
-      separable<float, float, C>(static_cast<const float*>(src), h, w, c, xi,
-                                 static_cast<const float*>(xw), kx, out_w, yi,
-                                 static_cast<const float*>(yw), ky, out_h, x_from_zero != 0,
-                                 static_cast<float*>(dst));
-    else
-      separable<double, double, C>(static_cast<const double*>(src), h, w, c, xi,
-                                   static_cast<const double*>(xw), kx, out_w, yi,
-                                   static_cast<const double*>(yw), ky, out_h, x_from_zero != 0,
-                                   static_cast<double*>(dst));
+                          int x_from_zero, int64_t lanes, void* dst) {
+  by_dtype(dtype, [&](auto t, auto a) {
+    using T = decltype(t);
+    using A = decltype(a);
+    by_channels(c, [&](auto k) {
+      separable<T, A, decltype(k)::value>(
+          static_cast<const T*>(src), h, w, c, xi, static_cast<const A*>(xw), kx, out_w, yi,
+          static_cast<const A*>(yw), ky, out_h, x_from_zero != 0, lanes,
+          static_cast<T*>(dst));
+    });
   });
 }
 
-void ssd_resize_lanczos_u8(const uint8_t* src, int64_t h, int64_t w, int64_t c, const int64_t* xi,
-                           const int32_t* xw, int64_t kx, int64_t out_w, const int64_t* yi,
-                           const int32_t* yw, int64_t ky, int64_t out_h, uint8_t* dst) {
+void ssd_resize_fixed_u8(const uint8_t* src, int64_t h, int64_t w, int64_t c, const int64_t* xi,
+                         const int32_t* xw, int64_t kx, int64_t out_w, const int64_t* yi,
+                         const int32_t* yw, int64_t ky, int64_t out_h, int64_t lanes,
+                         uint8_t* dst) {
   by_channels(c, [&](auto k) {
-    lanczos_u8<decltype(k)::value>(src, h, w, c, xi, xw, kx, out_w, yi, yw, ky, out_h, dst);
+    fixed_u8<decltype(k)::value>(src, h, w, c, xi, xw, kx, out_w, yi, yw, ky, out_h, lanes,
+                                 dst);
   });
 }
 
 void ssd_resize_block_mean(int dtype, const void* src, int64_t w, int64_t c, int64_t iy,
-                           int64_t ix, int64_t out_h, int64_t out_w, int halve, void* dst) {
-  if (dtype == 0)
-    block_mean<uint8_t>(static_cast<const uint8_t*>(src), w, c, iy, ix, out_h, out_w, halve != 0,
-                        static_cast<uint8_t*>(dst));
-  else if (dtype == 1)
-    block_mean<float>(static_cast<const float*>(src), w, c, iy, ix, out_h, out_w, halve != 0,
-                      static_cast<float*>(dst));
-  else
-    block_mean<double>(static_cast<const double*>(src), w, c, iy, ix, out_h, out_w, halve != 0,
-                       static_cast<double*>(dst));
-}
-
-// inv: the inverted map's six values and border: c values, both in the work
-// type (float32 for uint8 and float32 images, float64 for float64).
-void ssd_warp_affine(int dtype, const void* src, int64_t h, int64_t w, int64_t c, const void* inv,
-                     const void* border, int64_t out_h, int64_t out_w, void* dst) {
-  by_channels(c, [&](auto k) {
-    constexpr int C = decltype(k)::value;
-    if (dtype == 0)
-      warp<uint8_t, float, C>(static_cast<const uint8_t*>(src), h, w, c,
-                              static_cast<const float*>(inv), static_cast<const float*>(border),
-                              out_h, out_w, static_cast<uint8_t*>(dst));
-    else if (dtype == 1)
-      warp<float, float, C>(static_cast<const float*>(src), h, w, c,
-                            static_cast<const float*>(inv), static_cast<const float*>(border),
-                            out_h, out_w, static_cast<float*>(dst));
-    else
-      warp<double, double, C>(static_cast<const double*>(src), h, w, c,
-                              static_cast<const double*>(inv), static_cast<const double*>(border),
-                              out_h, out_w, static_cast<double*>(dst));
+                           int64_t ix, int64_t out_h, int64_t out_w, int halve, int64_t lanes,
+                           void* dst) {
+  by_dtype(dtype, [&](auto t, auto a) {
+    using T = decltype(t);
+    block_mean<T, decltype(a)>(static_cast<const T*>(src), w, c, iy, ix, out_h, out_w,
+                               halve != 0, lanes, static_cast<T*>(dst));
   });
 }
 
-// code: 0 RGB->HSV, 1 HSV->RGB, 2 RGB->GRAY; dtype 0 uint8 or 1 float32.
+// inv: the inverted map's six values and border: c values, both in the work
+// type (float64 for float64 images, float32 for the others).
+void ssd_warp_affine(int dtype, const void* src, int64_t h, int64_t w, int64_t c, const void* inv,
+                     const void* border, int64_t out_h, int64_t out_w, void* dst) {
+  by_dtype(dtype, [&](auto t, auto a) {
+    using T = decltype(t);
+    using W = decltype(a);
+    by_channels(c, [&](auto k) {
+      warp<T, W, decltype(k)::value>(static_cast<const T*>(src), h, w, c,
+                                     static_cast<const W*>(inv), static_cast<const W*>(border),
+                                     out_h, out_w, static_cast<T*>(dst));
+    });
+  });
+}
+
+// x0, y0: each output row's start in 1/1024 pixel plus the round delta;
+// dx, dy: each output column's step (int32). tab: 32 * 32 * 4 weights, int32
+// for uint8 images, float32 for the others. cval: c values of the image type.
+void ssd_warp_remap(int dtype, const void* src, int64_t h, int64_t w, int64_t c,
+                    const int32_t* x0, const int32_t* y0, const int32_t* dx, const int32_t* dy,
+                    const void* tab, const void* cval, int64_t out_h, int64_t out_w, void* dst) {
+  by_dtype(dtype, [&](auto t, auto a) {
+    using T = decltype(t);
+    using A = decltype(a);
+    by_channels(c, [&](auto k) {
+      constexpr int C = decltype(k)::value;
+      const T* s = static_cast<const T*>(src);
+      const T* v = static_cast<const T*>(cval);
+      T* d = static_cast<T*>(dst);
+      if constexpr (std::is_same<T, uint8_t>::value)
+        warp_remap<T, int32_t, int32_t, C>(s, h, w, c, x0, y0, dx, dy,
+                                          static_cast<const int32_t*>(tab), v, out_h, out_w, d);
+      else
+        warp_remap<T, A, float, C>(s, h, w, c, x0, y0, dx, dy, static_cast<const float*>(tab),
+                                   v, out_h, out_w, d);
+    });
+  });
+}
+
+// code: 0 RGB->HSV, 1 HSV->RGB, 2 RGB->GRAY; dtype 0 uint8 or 1 float32, or
+// 3 uint16 for RGB->GRAY.
 // sdiv, hdiv: the 256-entry division tables of the uint8 RGB->HSV.
 void ssd_cvt_color(int code, int dtype, const void* src, int64_t h, int64_t w,
                    const int64_t* sdiv, const int64_t* hdiv, void* dst) {
   const int64_t n = h * w;
-  if (dtype == 0) {
+  if (dtype == 3) {
+    rgb_to_gray_int(static_cast<const uint16_t*>(src), n, static_cast<uint16_t*>(dst));
+  } else if (dtype == 0) {
     const uint8_t* s = static_cast<const uint8_t*>(src);
     uint8_t* d = static_cast<uint8_t*>(dst);
     if (code == 0) rgb_to_hsv_u8(s, n, sdiv, hdiv, d);
     else if (code == 1) hsv_to_rgb_u8(s, h, w, d);
-    else rgb_to_gray_u8(s, n, d);
+    else rgb_to_gray_int(s, n, d);
   } else {
     const float* s = static_cast<const float*>(src);
     float* d = static_cast<float*>(dst);

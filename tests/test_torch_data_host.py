@@ -208,8 +208,12 @@ def test_resize_constants_and_unported_modes():
             geometric.Resize(10, 10, interpolation_mode=mode)
         with pytest.raises(ValueError, match="interpolation mode"):
             geometric.resize_image(np.zeros((4, 4, 3), np.uint8), 2, 2, mode)
-    with pytest.raises(NotImplementedError, match="uint8 or float"):
-        geometric.resize_image(np.zeros((4, 4, 3), np.uint16), 2, 2)
+    # uint16 is ported; int32 cv2.resize takes in INTER_NEAREST alone.
+    assert geometric.resize_image(np.zeros((4, 4, 3), np.uint16), 2, 2).dtype == np.uint16
+    with pytest.raises(cv2.error):
+        cv2.resize(np.zeros((4, 4, 3), np.int32), (2, 2))
+    with pytest.raises(NotImplementedError, match="uint8, uint16, int16 or float"):
+        geometric.resize_image(np.zeros((4, 4, 3), np.int32), 2, 2)
 
 
 def _generators(images, labels, neutral, ids):

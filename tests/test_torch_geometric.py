@@ -6,10 +6,20 @@ Labels never depend on pixels: they must be equal bit for bit. Pixels, as
 level of OpenCV and equal on at least 99.9% of pixels (most are exact:
 linear, nearest, area, Lanczos, integer translation, right-angle rotation);
 ``Translate`` and ``Flip`` bit-equal; float images within 1e-3 of a 0-255
-range (OpenCV's vector sums in another order). Sizes go up, down, exactly
-2x down and to odd shapes. ``Rotate`` is held against OpenCV at odd and even
-sizes: its result is not ``np.rot90``.
+range. Sizes go up, down, exactly 2x down and to odd shapes. ``Rotate`` is
+held against OpenCV at odd and even sizes: its result is not ``np.rot90``.
+
+Every image type OpenCV resizes and warps (uint8, uint16, int16, float32,
+float64) at 1-4 channels is held to ``cv2`` as shipped, with IPP, and to
+OpenCV's own code (``cv2.ipp.setUseIPP(False)``), cell by cell: exact, but
+where IPP takes the cell (``IPP_LINEAR``, ``IPP_CUBIC``: within one level
+for integers, ``IPP_FLOAT_TOL`` for floats) and on the warp's unrounded path
+(uint8, uint16, float32 at 1, 3 or 4 channels: ``WARP_TAIL_TOL``, OpenCV's
+scalar tail). The remap-path warp (float64, int16, 2 channels) is exact.
+``INTER_NEAREST`` takes and keeps every type ``cv2.resize`` does.
 """
+
+import contextlib
 
 import random
 
@@ -21,6 +31,7 @@ import torch
 from ssd_keras_tpu.data import geometric as J
 from ssd_keras_tpu.data.validation import BoxFilter as JaxBoxFilter
 from ssd_keras_tpu.data.validation import ImageValidator as JaxImageValidator
+from chip_smoke import IMAGE_OP_BORDERS, IMAGE_OP_RESIZES, image_op_noise
 from ssd_keras_torch.data import geometric as P
 from ssd_keras_torch.data.validation import BoxFilter, ImageValidator
 
@@ -209,3 +220,174 @@ def test_random_geometric_transforms_draw_like_jax(name, shape):
         _assert_pixels(gi, ei)
         changed += gi.shape != image.shape or not np.array_equal(gi, image)
     assert changed > 0
+
+
+# --------------------------------------------------------------------------- #
+# Every image type against cv2, with IPP (as shipped) and without
+# --------------------------------------------------------------------------- #
+
+TYPES = [np.uint8, np.uint16, np.int16, np.float32, np.float64]
+WARP_MAPS = {"shift": np.array([[1, 0, 3.3], [0, 1, -2.6]]),
+             "rotation": cv2.getRotationMatrix2D((20.3, 15.7), 17, 1.1),
+             "scale": np.array([[0.77, 0, 1.9], [0, 1.31, -0.4]])}
+# The cells cv2.resize hands to IPP at 1, 3 or 4 channels.
+IPP_LINEAR = (np.uint16, np.int16, np.float32, np.float64)
+IPP_CUBIC = (np.uint8, np.uint16, np.int16, np.float32)
+# There: one level for the integer types, this for floats on [-20, 280).
+IPP_FLOAT_TOL = 2e-3
+# The unrounded warp's scalar tail (the last width % 16 pixels of a row),
+# where OpenCV rounds the source position otherwise.
+WARP_TAIL_TOL = {np.uint8: 1, np.uint16: 1, np.float32: 2e-3}
+
+
+@contextlib.contextmanager
+def _ipp(on):
+    before = cv2.ipp.useIPP()
+    cv2.ipp.setUseIPP(on)
+    try:
+        yield
+    finally:
+        cv2.ipp.setUseIPP(before)
+
+
+def _within(got, want, tol):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    diff = np.abs(got.astype(np.float64) - want.astype(np.float64))
+    assert diff.max() <= tol, (diff.max(), tol)
+
+
+@pytest.mark.parametrize("border", sorted(IMAGE_OP_BORDERS))
+@pytest.mark.parametrize("warp", sorted(WARP_MAPS))
+@pytest.mark.parametrize("channels", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", TYPES, ids=lambda d: np.dtype(d).name)
+def test_warp_affine_every_type_against_opencv(dtype, channels, warp, border):
+    image = image_op_noise(np.random.RandomState(channels), (37, 53, channels), dtype)
+    m, value = WARP_MAPS[warp], IMAGE_OP_BORDERS[border]
+    remap = dtype in (np.int16, np.float64) or channels == 2
+    for dsize in [(60, 45), (50, 41)]:
+        got = P.warp_affine(image, m, dsize, value)
+        np.testing.assert_array_equal(got, P.warp_affine_numpy(image, m, dsize, value))
+        for ipp in (True, False):  # IPP takes no warp
+            with _ipp(ipp):
+                want = cv2.warpAffine(image, m, dsize, borderValue=value)
+            _within(got, want, 0 if remap else WARP_TAIL_TOL[dtype])
+
+
+def test_warp_border_is_saturated_to_the_image_type():
+    """A fractional or out-of-range border takes OpenCV's saturate_cast on
+    both paths (7.5 -> 8, 8.5 -> 8, -3.2 -> 0, 70000 -> 255 for uint8)."""
+    value = (7.5, 8.5, -3.2, 70000)
+    for dtype in (np.uint8, np.uint16, np.int16):
+        for channels in (2, 3, 4):
+            image = image_op_noise(np.random.RandomState(9), (37, 53, channels), dtype)
+            for m in WARP_MAPS.values():
+                got = P.warp_affine(image, m, (60, 45), value)
+                _within(got, cv2.warpAffine(image, m, (60, 45), borderValue=value),
+                        0 if channels == 2 or dtype == np.int16 else 1)
+
+
+@pytest.mark.parametrize("channels", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", TYPES, ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_resize_every_type_against_opencv(mode, dtype, channels):
+    flag = MODES[mode]
+    ipp_cell = channels != 2 and (mode == "linear" and dtype in IPP_LINEAR
+                                  or mode == "cubic" and dtype in IPP_CUBIC)
+    tol = IPP_FLOAT_TOL if np.dtype(dtype).kind == "f" else 1
+    for case, (src, dst) in IMAGE_OP_RESIZES.items():
+        image = image_op_noise(np.random.RandomState(len(case) + channels), (*src, channels),
+                               dtype)
+        got = P.resize_image(image, *dst, flag)
+        np.testing.assert_array_equal(got, P.resize_image_numpy(image, *dst, flag))
+        with _ipp(True):
+            shipped = cv2.resize(image, dst[::-1], interpolation=flag)
+        with _ipp(False):
+            own = cv2.resize(image, dst[::-1], interpolation=flag)
+        _within(got, shipped, tol if ipp_cell else 0)
+        # OpenCV's own code: exact but in IPP's cubic cells, which keep
+        # the sum that comes nearest IPP's.
+        _within(got, own, tol if ipp_cell and mode == "cubic" else 0)
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.uint32, np.int32, np.int64, np.uint64, np.bool_,
+                                   np.float16], ids=lambda d: np.dtype(d).name)
+def test_nearest_takes_the_types_opencv_takes(dtype):
+    """cv2.resize takes these in INTER_NEAREST alone (int64 and uint64 come
+    back int32, wrapped, from its binding); the other modes raise."""
+    for case, (src, dst) in IMAGE_OP_RESIZES.items():
+        for channels in (1, 3):
+            image = image_op_noise(np.random.RandomState(len(case)), (*src, channels), dtype)
+            want = cv2.resize(image, dst[::-1], interpolation=cv2.INTER_NEAREST)
+            got = P.resize_image(image, *dst, P.INTER_NEAREST)
+            assert got.dtype == want.dtype and got.shape == want.shape
+            np.testing.assert_array_equal(got, want)
+            np.testing.assert_array_equal(P.resize_image_numpy(image, *dst, P.INTER_NEAREST), want)
+    if dtype == np.float16:
+        return  # the port resizes float16 in every mode (NumPy); OpenCV refuses
+    image = image_op_noise(np.random.RandomState(0), (9, 11, 3), dtype)
+    for mode in ("linear", "cubic", "area", "lanczos4"):
+        with pytest.raises(cv2.error):
+            cv2.resize(image, (7, 5), interpolation=MODES[mode])
+        with pytest.raises(NotImplementedError):
+            P.resize_image(image, 5, 7, MODES[mode])
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.int32, np.uint32, np.bool_],
+                         ids=lambda d: np.dtype(d).name)
+def test_warp_refuses_the_types_opencv_refuses(dtype):
+    image = image_op_noise(np.random.RandomState(0), (9, 11, 3), dtype)
+    with pytest.raises(cv2.error):
+        cv2.warpAffine(image, WARP_MAPS["shift"], (7, 5))
+    with pytest.raises(NotImplementedError):
+        P.warp_affine(image, WARP_MAPS["shift"], (7, 5))
+
+
+def test_single_channel_images_come_back_two_dimensional():
+    """An (H, W, 1) image comes back (h, w) from either op, as from cv2."""
+    image = image_op_noise(np.random.RandomState(0), (37, 53, 1), np.uint16)
+    for m in WARP_MAPS.values():
+        got = P.warp_affine(image, m, (60, 45))
+        want = cv2.warpAffine(image, m, (60, 45))
+        assert got.shape == want.shape == (45, 60)
+    assert P.resize_image(image, 20, 30).shape == cv2.resize(image, (30, 20)).shape == (20, 30)
+
+
+@pytest.mark.parametrize("dtype", TYPES, ids=lambda d: np.dtype(d).name)
+def test_warp_of_five_channels_against_opencv(dtype):
+    """Past four channels every type takes the remap path; channel k takes
+    the border's value k & 3."""
+    image = image_op_noise(np.random.RandomState(5), (37, 53, 5), dtype)
+    for m in WARP_MAPS.values():
+        value = (10, 200, 30, 77)
+        _within(P.warp_affine(image, m, (60, 45), value),
+                cv2.warpAffine(image, m, (60, 45), borderValue=value), 0)
+
+
+def test_opencv_parity_report(tmp_path):
+    """``examples.opencv_parity`` measured on this checkout in a child
+    process (``--tree``): no cell raises, the remap-path warps and the
+    cells outside IPP's are exact, IPP's within the tolerances above."""
+    from pathlib import Path
+
+    from ssd_keras_torch.examples import opencv_parity
+
+    repo = Path(__file__).resolve().parent.parent
+    out = tmp_path / "parity.md"
+    result = opencv_parity.main(["--tree", str(repo), "--out", str(out)])
+    assert out.read_text().startswith("# The host image ops against OpenCV")
+    for table in result.values():
+        for cell, by_ipp in table.items():
+            assert not any(isinstance(v, str) for v in by_ipp.values()), (cell, by_ipp)
+    for cell, d in result["warp"].items():
+        dtype, channels = cell.split(" x")
+        if dtype in ("int16", "float64") or channels == "2":
+            assert d == {"ipp": 0, "no_ipp": 0}, cell
+    for cell, d in result["resize"].items():
+        dtype, rest = cell.split(" x")
+        channels, mode = rest.split(" ")
+        ipp_cell = channels != "2" and (
+            mode == "linear" and dtype in ("uint16", "int16", "float32", "float64")
+            or mode == "cubic" and dtype in ("uint8", "uint16", "int16", "float32"))
+        tol = IPP_FLOAT_TOL if dtype.startswith("float") else 1
+        assert d["ipp"] <= (tol if ipp_cell else 0), cell
+    assert result["gray_uint16"]["RGB->GRAY"] == {"ipp": 0, "no_ipp": 0}

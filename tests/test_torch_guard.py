@@ -11,7 +11,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from ssd_keras_torch import SSDConfig, SSDInputEncoder, native, ssd_7, ssd_300, ssd_512
+from ssd_keras_torch import (SSDConfig, SSDInputEncoder, graft_entry, native, ssd_7, ssd_300,
+                             ssd_512)
 from ssd_keras_torch.eval import Evaluator, predict_all_to_json
 from ssd_keras_torch.eval import evaluator as evaluator_module
 from ssd_keras_torch.kernels import build
@@ -61,7 +62,7 @@ def test_import_needs_neither_jax_nor_the_jax_package():
         "        'ssd_keras_torch.examples.streaming_bench',\n"
         "        'ssd_keras_torch.native.jpeg', 'ssd_keras_torch.kernels.jpeg_color',\n"
         "        'ssd_keras_torch.ops.jpeg_color', 'ssd_keras_torch.bench',\n"
-        "        'ssd_keras_torch.bench_all'} <= set(sys.modules)\n"
+        "        'ssd_keras_torch.bench_all', 'ssd_keras_torch.graft_entry'} <= set(sys.modules)\n"
         "bad = {'jax', 'flax', 'optax', 'orbax', 'ssd_keras_tpu', 'h5py', 'PIL', 'triton',\n"
         "       'cv2', 'bs4', 'lxml'}\n"
         "bad &= set(sys.modules)\n"
@@ -228,11 +229,12 @@ _BUILDERS = {
     "ssd_7": lambda: ssd_7(SSDConfig.ssd7(n_classes=3, img_height=64, img_width=64)),
     "SSDInputEncoder": lambda: SSDInputEncoder(
         SSDConfig.ssd7(n_classes=3, img_height=64, img_width=64), [(8, 8)]),
+    "graft_entry": lambda: graft_entry.entry(),
 }
 
 
-@pytest.mark.parametrize("builder", [ssd_300, ssd_7, SSDInputEncoder.__init__],
-                         ids=["ssd_300", "ssd_7", "SSDInputEncoder"])
+@pytest.mark.parametrize("builder", [ssd_300, ssd_7, SSDInputEncoder.__init__, graft_entry.entry],
+                         ids=["ssd_300", "ssd_7", "SSDInputEncoder", "graft_entry"])
 def test_builders_default_to_the_card(builder):
     assert inspect.signature(builder).parameters["device"].default == "cuda"
 

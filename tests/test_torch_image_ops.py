@@ -4,14 +4,17 @@ through it against the JAX package's, which run OpenCV.
 
 Each native op must equal its plain version bit for bit (``np.array_equal``
 on the same dtype and shape): ``resize_image`` against
-``resize_image_numpy`` in all five modes for uint8, float32 and float64 on
-1 and 3 channels, up and down, to and from one pixel, at odd sizes, exact
-2x, integer area factors (3x, 4x) and non-integer area shrinks;
+``resize_image_numpy`` in all five modes for uint8, uint16, int16, float32
+and float64 on 1, 2 and 3 channels, up and down, to and from one pixel, at
+odd sizes, exact 2x, integer area factors (3x, 4x) and non-integer area
+shrinks, and in ``INTER_NEAREST`` for int8, uint32, int32 and bool;
 ``cvt_color`` against ``cvt_color_numpy`` all three ways for uint8 and
 float32 at widths 31, 32, 33 and 65 (the uint8 HSV->RGB rounds the last
-``width % 32`` pixels of a row and truncates the others); ``warp_affine``
-against ``warp_affine_numpy`` for integer translation, scale, right-angle
-and arbitrary rotation with a zero and a non-zero border. Inputs come from
+``width % 32`` pixels of a row and truncates the others) and RGB->GRAY for
+uint16; ``warp_affine`` against ``warp_affine_numpy`` for integer
+translation, scale, right-angle and arbitrary rotation with a zero and a
+non-zero border, on both of OpenCV's paths (the remap path: float64, int16,
+2 and 5 channels). Inputs come from
 a numpy seed. Each chain run through the native ops gives the images and
 labels it gives with the plain functions patched in, and
 ``SSDDataAugmentation`` stays within the one level of OpenCV that
@@ -44,7 +47,8 @@ from ssd_keras_torch.native import image_ops
 
 torch.set_num_threads(2)
 
-DTYPES = [np.uint8, np.float32, np.float64]
+DTYPES = [np.uint8, np.float32, np.float64, np.uint16, np.int16]
+CHANNELS = [1, 2, 3]
 # tests/test_torch_chains.py's gate on the chains against OpenCV.
 MAX_DIFF = 1
 MIN_EQUAL = 0.999
@@ -74,7 +78,7 @@ def _calls():
 # --------------------------------------------------------------------------- #
 
 
-@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("channels", CHANNELS)
 @pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
 @pytest.mark.parametrize("mode", sorted(MODES))
 @pytest.mark.parametrize("case", sorted(RESIZES))
@@ -112,6 +116,39 @@ def test_resize_views_and_squeeze_equal_numpy():
 
 
 @pytest.mark.parametrize("width", CVT_WIDTHS)
+def test_cvt_color_uint16_gray_equals_numpy(width):
+    image = _image((5, width, 3), np.uint16, seed=width)
+    got = PH.cvt_color(image, "RGB", "GRAY")
+    assert got.dtype == np.uint16 and got.shape == (5, width)
+    _assert_same(got, PH.cvt_color_numpy(image, "RGB", "GRAY"))
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.uint32, np.int32, np.bool_],
+                         ids=lambda d: np.dtype(d).name)
+def test_nearest_of_other_types_equals_numpy(dtype):
+    """A gather by item size: the native route takes every type cv2.resize
+    keeps in INTER_NEAREST."""
+    before = _calls()
+    for case, (src, dst) in sorted(RESIZES.items()):
+        image = _image((*src, 3), dtype, seed=len(case))
+        _assert_same(G.resize_image(image, *dst, G.INTER_NEAREST),
+                     G.resize_image_numpy(image, *dst, G.INTER_NEAREST))
+    assert _calls()["resize"] == before["resize"] + sum(
+        src != dst for src, dst in RESIZES.values())
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
+def test_warp_of_five_channels_equals_numpy(dtype):
+    """Past four channels every type takes the remap path, channel k the
+    border's value k & 3."""
+    image = _image((*WARP_SHAPE, 5), dtype, seed=5)
+    for m in WARPS.values():
+        for border in BORDERS.values():
+            _assert_same(G.warp_affine(image, m, (50, 41), border),
+                         G.warp_affine_numpy(image, m, (50, 41), border))
+
+
+@pytest.mark.parametrize("width", CVT_WIDTHS)
 @pytest.mark.parametrize("dtype", [np.uint8, np.float32], ids=lambda d: np.dtype(d).name)
 @pytest.mark.parametrize("current, to", CVT)
 def test_cvt_color_equals_numpy(current, to, dtype, width):
@@ -140,7 +177,7 @@ def test_cvt_color_uint8_equals_numpy_on_every_triple():
 
 @pytest.mark.parametrize("border", sorted(BORDERS))
 @pytest.mark.parametrize("warp", sorted(WARPS))
-@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("channels", CHANNELS)
 @pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
 def test_warp_affine_equals_numpy(dtype, channels, warp, border):
     image = _image((*WARP_SHAPE, channels), dtype, seed=channels)
@@ -163,15 +200,16 @@ def test_native_route_counts_each_op(dtype):
     before = _calls()
     G.resize_image(image, 11, 13, G.INTER_AREA)
     G.warp_affine(image, WARPS["rotation"], (24, 20))
-    if dtype != np.float64:
+    gray = dtype in (np.uint8, np.float32, np.uint16)  # the types cv2 converts to GRAY
+    if gray:
         PH.cvt_color(image.astype(dtype), "RGB", "GRAY")
-    else:  # cvt_color takes uint8 and float32 only, as before the C++
+    else:
         with pytest.raises(TypeError):
             PH.cvt_color(image, "RGB", "GRAY")
     after = _calls()
     assert after["resize"] == before["resize"] + 1
     assert after["warp_affine"] == before["warp_affine"] + 1
-    assert after["cvt_color"] == before["cvt_color"] + (dtype != np.float64)
+    assert after["cvt_color"] == before["cvt_color"] + gray
 
 
 def test_float16_takes_the_numpy_route():
@@ -207,8 +245,8 @@ BAD_CALLS = {
     "resize_2d_image": lambda u8, f32: image_ops.resize_separable(
         u8[..., 0], np.zeros((3, 4), np.int64), np.zeros((3, 4), np.float32),
         np.zeros((3, 4), np.int64), np.zeros((3, 4), np.float32)),
-    "resize_int16_image": lambda u8, f32: image_ops.resize_block_mean(
-        u8.astype(np.int16), 4, 5, 2, 2, True),
+    "resize_int32_image": lambda u8, f32: image_ops.resize_block_mean(
+        u8.astype(np.int32), 4, 5, 2, 2, True),
     "resize_float16_image": lambda u8, f32: image_ops.resize_nearest(
         f32.astype(np.float16), [0, 1], [0, 1]),
     "resize_not_contiguous": lambda u8, f32: image_ops.resize_nearest(u8[:, ::-1], [0], [0]),
@@ -219,7 +257,7 @@ BAD_CALLS = {
     "resize_weights_of_another_shape": lambda u8, f32: image_ops.resize_separable(
         f32, np.zeros((3, 4), np.int64), np.zeros((3, 3), np.float32),
         np.zeros((3, 4), np.int64), np.zeros((3, 4), np.float32)),
-    "resize_lanczos_u8_of_floats": lambda u8, f32: image_ops.resize_lanczos_u8(
+    "resize_lanczos_u8_of_floats": lambda u8, f32: image_ops.resize_fixed_u8(
         f32, np.zeros((3, 8), np.int64), np.zeros((3, 8), np.int32),
         np.zeros((3, 8), np.int64), np.zeros((3, 8), np.int32)),
     "resize_linear_u8_short_taps": lambda u8, f32: image_ops.resize_linear_u8(

@@ -7,7 +7,7 @@ photometric.py``): uint8 RGB->HSV, HSV->RGB and RGB->GRAY, ``cv2.LUT`` and
 ``cv2.equalizeHist`` must equal OpenCV bit for bit; the float32 forms are
 held within 1e-4 (H in degrees, S in [0, 1], V and gray in the input's
 range; OpenCV's vector code divides and sums in another order, a few
-float32 ulps). The ``Random*`` forms must draw the same parameters from the
+float32 ulps); uint16 RGB->GRAY equals OpenCV bit for bit. The ``Random*`` forms must draw the same parameters from the
 same ``np.random`` state, so the outputs and the state after the call are
 equal. Images are seeded uint8 at three sizes, one of them with a width that
 leaves a remainder past OpenCV's 32-pixel vector blocks.
@@ -84,9 +84,36 @@ def test_convert_color_float32_within_ulps_of_opencv(shape, current, to):
     np.testing.assert_allclose(got, expected, rtol=FLOAT_TOL, atol=FLOAT_TOL)
 
 
+@pytest.mark.parametrize("width", [31, 32, 33, 65, 256])
+def test_rgb_to_gray_uint16_equals_opencv(width):
+    """OpenCV's 15-bit weights, as for uint8, over the whole uint16 range,
+    in its vector blocks and its scalar tail; each channel alone at every
+    value too."""
+    image = np.random.RandomState(width).randint(0, 65536, (7, width, 3)).astype(np.uint16)
+    image[0, :3] = 65535
+    want = cv2.cvtColor(image, cv2.COLOR_RGB2GRAY)
+    for fn in (P.cvt_color, P.cvt_color_numpy):
+        got = fn(image, "RGB", "GRAY")
+        assert got.dtype == np.uint16
+        np.testing.assert_array_equal(got, want)
+    ramp = np.zeros((3, 65536, 3), np.uint16)
+    for ch in range(3):
+        ramp[ch, :, ch] = np.arange(65536)
+    ramp = ramp.reshape(-1, 256, 3)
+    np.testing.assert_array_equal(P.cvt_color(ramp, "RGB", "GRAY"),
+                                  cv2.cvtColor(ramp, cv2.COLOR_RGB2GRAY))
+
+
 def test_cvt_color_rejects_other_types_and_shapes():
     with pytest.raises(TypeError, match="uint8 or float32"):
         P.cvt_color(np.zeros((4, 4, 3), np.float64), "RGB", "HSV")
+    # cv2 converts uint16 to GRAY alone, and int16 not at all.
+    for dtype, to in ((np.uint16, "HSV"), (np.int16, "GRAY"), (np.float64, "GRAY")):
+        image = np.zeros((4, 4, 3), dtype)
+        with pytest.raises(cv2.error):
+            cv2.cvtColor(image, cv2.COLOR_RGB2HSV if to == "HSV" else cv2.COLOR_RGB2GRAY)
+        with pytest.raises(TypeError):
+            P.cvt_color(image, "RGB", to)
     with pytest.raises(ValueError, match=r"\(H, W, 3\)"):
         P.cvt_color(np.zeros((4, 4), np.uint8), "RGB", "HSV")
     with pytest.raises(NotImplementedError):
