@@ -1,0 +1,11 @@
+"""Host time of the data generator's ``data.decode`` spans (file headers,
+nvJPEG, the colour kernel and the copy back) over the traced pass, per
+image predicted (``eval.images``)."""
+
+
+def read(run):
+    from perfbench import program
+
+    images = program.counts(run).get("eval.images")
+    spans = program.program_s(run)
+    return 1e3 * program.total_s(spans, "data.decode") / images if images and spans else None

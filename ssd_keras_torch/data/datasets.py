@@ -37,6 +37,7 @@ import numpy as np
 from ssd_keras_torch import native
 from ssd_keras_torch.data.geometric import resize_image
 from ssd_keras_torch.data.validation import BoxFilter
+from ssd_keras_torch.utils.profiling import span
 
 __all__ = [
     "DataGenerator",
@@ -492,11 +493,14 @@ class DataGenerator:
                 and all(str(self.filenames[i]).lower().endswith((".jpg", ".jpeg"))
                         for i in indices)):
             buffers = []
-            for i in indices:
-                with open(self.filenames[i], "rb") as f:
-                    buffers.append(f.read())
-            return native.decode_jpeg_batch(buffers, device=self.jpeg_device)
-        return [self._get_image(i) for i in indices]
+            with span("data.read"):
+                for i in indices:
+                    with open(self.filenames[i], "rb") as f:
+                        buffers.append(f.read())
+            with span("data.decode"):
+                return native.decode_jpeg_batch(buffers, device=self.jpeg_device)
+        with span("data.read"):
+            return [self._get_image(i) for i in indices]
 
     def generate(
         self,
@@ -578,168 +582,170 @@ class DataGenerator:
             batch_inverse_transforms = []
 
             batch_images = self._get_images_batch(batch_indices)
-            for k, idx in enumerate(batch_indices):
-                idx = int(idx)
-                image = batch_images[k]
-                labels = (
-                    deepcopy(self.labels[idx]) if self.labels is not None else None
-                )
-                batch_filenames.append(
-                    self.filenames[idx] if self.filenames is not None else None
-                )
-                batch_image_ids.append(
-                    self.image_ids[idx] if self.image_ids is not None else None
-                )
-                batch_neutral.append(
-                    self.eval_neutral[idx] if self.eval_neutral is not None else None
-                )
-                if "original_images" in returns:
-                    batch_original_images.append(np.copy(image))
-                if "original_labels" in returns:
-                    batch_original_labels.append(
-                        deepcopy(labels) if labels is not None else None
+            with span("data.transform"):
+                for k, idx in enumerate(batch_indices):
+                    idx = int(idx)
+                    image = batch_images[k]
+                    labels = (
+                        deepcopy(self.labels[idx]) if self.labels is not None else None
                     )
-
-                if (labels is None or labels.size == 0) and not keep_images_without_gt:
-                    batch_X.append(None)
-                    batch_y.append(None)
-                    batch_inverse_transforms.append(None)
-                    continue
-
-                inverters = []
-                failed = False
-                for transform in transformations:
-                    wants_inverter = "inverse_transforms" in returns and (
-                        "return_inverter"
-                        in _call_params(transform)
+                    batch_filenames.append(
+                        self.filenames[idx] if self.filenames is not None else None
                     )
-                    if labels is None:
-                        if wants_inverter:
-                            out = transform(image, return_inverter=True)
-                            image, inv = out
-                            inverters.append(inv)
-                        else:
-                            image = transform(image)
-                        if image is None:
-                            failed = True
-                            break
-                    else:
-                        if wants_inverter:
-                            out = transform(image, labels, return_inverter=True)
-                            if isinstance(out, tuple) and len(out) == 3:
-                                image, labels, inv = out
-                            else:
-                                image, labels = out
-                                inv = None
-                            if inv is not None:
-                                if isinstance(inv, list):
-                                    inverters.extend(inv)
-                                else:
-                                    inverters.append(inv)
-                        else:
-                            image, labels = transform(image, labels)
-                        if image is None:
-                            failed = True
-                            break
-
-                if failed:
-                    batch_X.append(None)
-                    batch_y.append(None)
-                    batch_inverse_transforms.append(None)
-                    continue
-
-                if labels is not None and labels.size > 0:
-                    fx = self.labels_format
-                    xmin, ymin = fx["xmin"], fx["ymin"]
-                    xmax, ymax = fx["xmax"], fx["ymax"]
-                    degenerate = np.any(labels[:, xmax] <= labels[:, xmin]) or np.any(
-                        labels[:, ymax] <= labels[:, ymin]
+                    batch_image_ids.append(
+                        self.image_ids[idx] if self.image_ids is not None else None
                     )
-                    if degenerate:
-                        if degenerate_box_handling == "warn":
-                            warnings.warn(
-                                f"Degenerate ground truth boxes in batch item {idx}."
-                            )
-                        elif box_filter is not None:
-                            labels = box_filter(labels)
-                    if labels.size == 0 and not keep_images_without_gt:
+                    batch_neutral.append(
+                        self.eval_neutral[idx] if self.eval_neutral is not None else None
+                    )
+                    if "original_images" in returns:
+                        batch_original_images.append(np.copy(image))
+                    if "original_labels" in returns:
+                        batch_original_labels.append(
+                            deepcopy(labels) if labels is not None else None
+                        )
+
+                    if (labels is None or labels.size == 0) and not keep_images_without_gt:
                         batch_X.append(None)
                         batch_y.append(None)
                         batch_inverse_transforms.append(None)
                         continue
 
-                batch_X.append(image)
-                batch_y.append(labels)
-                batch_inverse_transforms.append(inverters[::-1])
-
-            # Drop failed/filtered items from every parallel list.
-            keep = [i for i, x in enumerate(batch_X) if x is not None]
-
-            def select(lst):
-                return [lst[i] for i in keep]
-
-            batch_X = select(batch_X)
-            batch_y = select(batch_y)
-            batch_filenames = select(batch_filenames)
-            batch_image_ids = select(batch_image_ids)
-            batch_neutral = select(batch_neutral)
-            batch_inverse_transforms = select(batch_inverse_transforms)
-            if "original_images" in returns:
-                batch_original_images = select(batch_original_images)
-            if "original_labels" in returns:
-                batch_original_labels = select(batch_original_labels)
-
-            if len(batch_X) == 0:
-                raise DegenerateBatchError(
-                    "The generated batch is empty: all images were filtered out. "
-                    "Check your transformation chain and keep_images_without_gt."
-                )
-            shapes = {x.shape for x in batch_X}
-            if len(shapes) != 1:
-                raise DegenerateBatchError(
-                    f"Batch images have inhomogeneous sizes {shapes}; add a "
-                    "Resize (or crop/pad) transformation producing a fixed size."
-                )
-            batch_X_arr = np.array(batch_X)
-
-            batch_y_encoded = None
-            batch_matched = None
-            if label_encoder is not None and self.labels is not None:
-                wants_matched = "matched_anchors" in returns
-                if wants_matched:
-                    try:
-                        batch_y_encoded, batch_matched = label_encoder(
-                            batch_y, diagnostics=True
+                    inverters = []
+                    failed = False
+                    for transform in transformations:
+                        wants_inverter = "inverse_transforms" in returns and (
+                            "return_inverter"
+                            in _call_params(transform)
                         )
-                    except TypeError:  # encoder without diagnostics support
-                        batch_y_encoded = label_encoder(batch_y)
-                else:
-                    batch_y_encoded = label_encoder(batch_y)
+                        if labels is None:
+                            if wants_inverter:
+                                out = transform(image, return_inverter=True)
+                                image, inv = out
+                                inverters.append(inv)
+                            else:
+                                image = transform(image)
+                            if image is None:
+                                failed = True
+                                break
+                        else:
+                            if wants_inverter:
+                                out = transform(image, labels, return_inverter=True)
+                                if isinstance(out, tuple) and len(out) == 3:
+                                    image, labels, inv = out
+                                else:
+                                    image, labels = out
+                                    inv = None
+                                if inv is not None:
+                                    if isinstance(inv, list):
+                                        inverters.extend(inv)
+                                    else:
+                                        inverters.append(inv)
+                            else:
+                                image, labels = transform(image, labels)
+                            if image is None:
+                                failed = True
+                                break
 
-            ret = []
-            for r in returns:
-                if r == "processed_images":
-                    ret.append(batch_X_arr)
-                elif r == "encoded_labels":
-                    ret.append(batch_y_encoded)
-                elif r == "matched_anchors":
-                    ret.append(batch_matched)
-                elif r == "processed_labels":
-                    ret.append(batch_y)
-                elif r == "filenames":
-                    ret.append(batch_filenames)
-                elif r == "image_ids":
-                    ret.append(batch_image_ids)
-                elif r == "evaluation-neutral":
-                    ret.append(batch_neutral)
-                elif r == "inverse_transforms":
-                    ret.append(batch_inverse_transforms)
-                elif r == "original_images":
-                    ret.append(batch_original_images)
-                elif r == "original_labels":
-                    ret.append(batch_original_labels)
-                else:
-                    raise ValueError(f"Unknown return {r!r}.")
+                    if failed:
+                        batch_X.append(None)
+                        batch_y.append(None)
+                        batch_inverse_transforms.append(None)
+                        continue
+
+                    if labels is not None and labels.size > 0:
+                        fx = self.labels_format
+                        xmin, ymin = fx["xmin"], fx["ymin"]
+                        xmax, ymax = fx["xmax"], fx["ymax"]
+                        degenerate = np.any(labels[:, xmax] <= labels[:, xmin]) or np.any(
+                            labels[:, ymax] <= labels[:, ymin]
+                        )
+                        if degenerate:
+                            if degenerate_box_handling == "warn":
+                                warnings.warn(
+                                    f"Degenerate ground truth boxes in batch item {idx}."
+                                )
+                            elif box_filter is not None:
+                                labels = box_filter(labels)
+                        if labels.size == 0 and not keep_images_without_gt:
+                            batch_X.append(None)
+                            batch_y.append(None)
+                            batch_inverse_transforms.append(None)
+                            continue
+
+                    batch_X.append(image)
+                    batch_y.append(labels)
+                    batch_inverse_transforms.append(inverters[::-1])
+
+            with span("data.collate"):
+                # Drop failed/filtered items from every parallel list.
+                keep = [i for i, x in enumerate(batch_X) if x is not None]
+
+                def select(lst):
+                    return [lst[i] for i in keep]
+
+                batch_X = select(batch_X)
+                batch_y = select(batch_y)
+                batch_filenames = select(batch_filenames)
+                batch_image_ids = select(batch_image_ids)
+                batch_neutral = select(batch_neutral)
+                batch_inverse_transforms = select(batch_inverse_transforms)
+                if "original_images" in returns:
+                    batch_original_images = select(batch_original_images)
+                if "original_labels" in returns:
+                    batch_original_labels = select(batch_original_labels)
+
+                if len(batch_X) == 0:
+                    raise DegenerateBatchError(
+                        "The generated batch is empty: all images were filtered out. "
+                        "Check your transformation chain and keep_images_without_gt."
+                    )
+                shapes = {x.shape for x in batch_X}
+                if len(shapes) != 1:
+                    raise DegenerateBatchError(
+                        f"Batch images have inhomogeneous sizes {shapes}; add a "
+                        "Resize (or crop/pad) transformation producing a fixed size."
+                    )
+                batch_X_arr = np.array(batch_X)
+
+                batch_y_encoded = None
+                batch_matched = None
+                if label_encoder is not None and self.labels is not None:
+                    wants_matched = "matched_anchors" in returns
+                    if wants_matched:
+                        try:
+                            batch_y_encoded, batch_matched = label_encoder(
+                                batch_y, diagnostics=True
+                            )
+                        except TypeError:  # encoder without diagnostics support
+                            batch_y_encoded = label_encoder(batch_y)
+                    else:
+                        batch_y_encoded = label_encoder(batch_y)
+
+                ret = []
+                for r in returns:
+                    if r == "processed_images":
+                        ret.append(batch_X_arr)
+                    elif r == "encoded_labels":
+                        ret.append(batch_y_encoded)
+                    elif r == "matched_anchors":
+                        ret.append(batch_matched)
+                    elif r == "processed_labels":
+                        ret.append(batch_y)
+                    elif r == "filenames":
+                        ret.append(batch_filenames)
+                    elif r == "image_ids":
+                        ret.append(batch_image_ids)
+                    elif r == "evaluation-neutral":
+                        ret.append(batch_neutral)
+                    elif r == "inverse_transforms":
+                        ret.append(batch_inverse_transforms)
+                    elif r == "original_images":
+                        ret.append(batch_original_images)
+                    elif r == "original_labels":
+                        ret.append(batch_original_labels)
+                    else:
+                        raise ValueError(f"Unknown return {r!r}.")
             yield tuple(ret)
 
 

@@ -33,6 +33,8 @@ from typing import NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
+from ssd_keras_torch.utils.profiling import spanned
+
 __all__ = [
     "rgb_to_hsv",
     "hsv_to_rgb",
@@ -428,12 +430,14 @@ class DeviceSSDAugmentation:
             gen = self._generators[device] = torch.Generator(device=device)
         return gen
 
+    @spanned("aug.draw")
     def draw(self, seed: int, batch: int, device) -> AugDraws:
         """The draws of a ``batch``-sample batch seeded ``seed``."""
         gen = self._generator(torch.device(device))
         gen.manual_seed(int(seed))
         return AugDraws(draw_photometric(gen, batch), draw_geometry(gen, batch))
 
+    @spanned("aug.apply")
     def apply(self, draws: AugDraws, images, labels, n_valid):
         """The augmentation of the batch given its draws (rows aligned)."""
         image = images.to(torch.float32)
@@ -457,6 +461,7 @@ class DeviceSSDAugmentation:
         new_labels = torch.where(dropped[..., None], 0.0, new_labels)
         return out, new_labels, count.to(torch.int32)
 
+    @spanned("aug")
     def __call__(self, seed: int, images, labels, n_valid):
         batch = images.shape[0]
         if self.mesh is None:

@@ -39,6 +39,7 @@ from ssd_keras_torch import native
 from ssd_keras_torch.kernels.nms import greedy_nms_mask_batched
 from ssd_keras_torch.ops import boxes as box_ops
 from ssd_keras_torch.ops.boxes import border_delta as _border_delta
+from ssd_keras_torch.utils.profiling import span
 
 __all__ = [
     "decode_offsets",
@@ -230,11 +231,15 @@ def _decode_caffe_batched(
     n = confs.shape[1]
     pool = max(nms_candidates or 0, nms_max_output_size)
     m = _resolve_compact_pool(compact_pool, n, pool)
-    scores, corners = compact_candidates(confs, corners, m)
-    cand_scores, cand_boxes, valid = _per_class_topk(
-        scores, corners, min(pool, n, m or n), _f32(confidence_thresh))
-    keep = _nms_lanes(cand_boxes, valid, iou_threshold, border_delta, nms_max_output_size)
-    return _global_topk(keep, cand_scores, cand_boxes, top_k)
+    with span("decode.compact"):
+        scores, corners = compact_candidates(confs, corners, m)
+    with span("decode.topk"):
+        cand_scores, cand_boxes, valid = _per_class_topk(
+            scores, corners, min(pool, n, m or n), _f32(confidence_thresh))
+    with span("decode.nms"):
+        keep = _nms_lanes(cand_boxes, valid, iou_threshold, border_delta, nms_max_output_size)
+    with span("decode.global_topk"):
+        return _global_topk(keep, cand_scores, cand_boxes, top_k)
 
 
 def decode_detections_fixed(

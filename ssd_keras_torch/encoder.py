@@ -30,6 +30,7 @@ from ssd_keras_torch.config import SSDConfig
 from ssd_keras_torch.devices import target_device
 from ssd_keras_torch.ops import boxes as box_ops
 from ssd_keras_torch.ops.matching import match_bipartite_greedy_topk, match_multi
+from ssd_keras_torch.utils.profiling import spanned
 
 __all__ = ["SSDInputEncoder", "DegenerateBoxError", "encode_targets", "pad_labels"]
 
@@ -215,6 +216,7 @@ class SSDInputEncoder:
             background_id=int(config.background_id),
         )
 
+    @spanned("encode")
     def encode_padded(self, labels_padded, n_valid) -> torch.Tensor:
         """Encode padded labels (tensors or arrays) on the encoder's device.
         Tensors already there are used as they are, with no host round trip."""

@@ -18,6 +18,15 @@ cross back through a pinned buffer and a CUDA event, read only when the
 batch is drained. Matching runs in the host C++ (``native``); its NumPy loop
 is the plain version (:meth:`Evaluator.match_predictions_numpy`). The rest
 is host NumPy vendored from the JAX package.
+
+Spans (``utils.profiling``): ``eval.predict`` over a pass's prediction, in
+it per batch (the id) ``data.batch`` (the generator's ``next``, with the
+generator's own ``data.*`` stages), ``eval.dispatch`` (upload, forward,
+device decode) and ``eval.drain`` (``eval.read``, the wait for the
+detections, and ``eval.bucket``, the inverse transforms and the per-box
+loop); then ``eval.num_gt``, ``eval.match``, ``eval.precision_recall``,
+``eval.ap`` and ``eval.map``. The counters ``eval.images`` and
+``eval.detections`` count the images predicted and the boxes bucketed.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from ssd_keras_torch.data.photometric import ConvertTo3Channels
 from ssd_keras_torch.decoder import decode_detections, decode_detections_fixed
 from ssd_keras_torch.devices import target_device
 from ssd_keras_torch.ops import boxes as box_ops
+from ssd_keras_torch.utils.profiling import count, span, spanned
 
 __all__ = ["Evaluator", "upload_batch", "HostCopy"]
 
@@ -190,6 +200,7 @@ class Evaluator:
 
     # ------------------------------------------------------------------ #
 
+    @spanned("eval.predict")
     def predict_on_dataset(
         self,
         img_height,
@@ -284,8 +295,13 @@ class Evaluator:
             return HostCopy(y_pred)
 
         def drain_one():
-            y_host, batch_image_ids, batch_inverse_transforms = pending.popleft()
-            y_pred = y_host.numpy()
+            batch, y_host, batch_image_ids, batch_inverse_transforms = pending.popleft()
+            with span("eval.drain", id=batch):
+                drain(y_host, batch_image_ids, batch_inverse_transforms)
+
+        def drain(y_host, batch_image_ids, batch_inverse_transforms):
+            with span("eval.read"):
+                y_pred = y_host.numpy()
             if self.model_mode == "training" and not device_decode:
                 y_pred = decode_detections(
                     y_pred,
@@ -301,8 +317,12 @@ class Evaluator:
             else:
                 # Decoded on the device: drop all-zero padding rows.
                 y_pred = [item[item[:, 0] != 0] for item in y_pred]
-            y_pred = apply_inverse_transforms(y_pred, batch_inverse_transforms)
+            with span("eval.bucket"):
+                bucket(apply_inverse_transforms(y_pred, batch_inverse_transforms),
+                       batch_image_ids)
 
+        def bucket(y_pred, batch_image_ids):
+            count("eval.detections", sum(len(item) for item in y_pred))
             for k, batch_item in enumerate(y_pred):
                 image_id = batch_image_ids[k]
                 for box in batch_item:
@@ -320,10 +340,14 @@ class Evaluator:
                         )
                     )
 
-        for _ in _batches(n_batches, verbose, "Producing predictions batch-wise"):
-            (batch_X, batch_image_ids, batch_eval_neutral,
-             batch_inverse_transforms, batch_orig_labels) = next(generator)
-            pending.append((dispatch(batch_X), batch_image_ids, batch_inverse_transforms))
+        for batch in _batches(n_batches, verbose, "Producing predictions batch-wise"):
+            with span("data.batch", id=batch):
+                (batch_X, batch_image_ids, batch_eval_neutral,
+                 batch_inverse_transforms, batch_orig_labels) = next(generator)
+            with span("eval.dispatch", id=batch):
+                y_host = dispatch(batch_X)
+            count("eval.images", len(batch_X))
+            pending.append((batch, y_host, batch_image_ids, batch_inverse_transforms))
             if len(pending) >= max_in_flight:
                 drain_one()
         while pending:
@@ -354,6 +378,7 @@ class Evaluator:
                     row[1] = round(row[1], 4)
                     f.write(" ".join(map(str, row)) + "\n")
 
+    @spanned("eval.num_gt")
     def get_num_gt_per_class(self, ignore_neutral_boxes=True, verbose=True, ret=False):
         """Count non-neutral GT boxes per class across the dataset."""
         if self.data_generator.labels is None:
@@ -405,6 +430,7 @@ class Evaluator:
         return self._match(self._match_class_numpy, ignore_neutral_boxes,
                            matching_iou_threshold, border_pixels, sorting_algorithm, ret)
 
+    @spanned("eval.match")
     def _match(self, match_class, ignore_neutral_boxes, matching_iou_threshold, border_pixels,
                sorting_algorithm, ret):
         if self.prediction_results is None:
@@ -534,6 +560,7 @@ class Evaluator:
                 false_pos[rank] = 1  # duplicate detection
         return true_pos, false_pos
 
+    @spanned("eval.precision_recall")
     def compute_precision_recall(self, verbose=True, ret=False):
         if self.cumulative_true_positives is None:
             raise ValueError("Run `match_predictions()` first.")
@@ -555,6 +582,7 @@ class Evaluator:
         if ret:
             return cumulative_precisions, cumulative_recalls
 
+    @spanned("eval.ap")
     def compute_average_precisions(
         self, mode="sample", num_recall_points=11, verbose=True, ret=False
     ):
@@ -591,6 +619,7 @@ class Evaluator:
         if ret:
             return average_precisions
 
+    @spanned("eval.map")
     def compute_mean_average_precision(self, ret=True):
         if self.average_precisions is None:
             raise ValueError("Run `compute_average_precisions()` first.")

@@ -37,6 +37,7 @@ import torch
 
 from ssd_keras_torch.kernels.build import load_library
 from ssd_keras_torch.ops.nms import greedy_nms_mask, mask_words
+from ssd_keras_torch.utils.profiling import span
 
 __all__ = ["captured", "greedy_nms_mask_batched", "iou_mask", "launches", "replayed"]
 
@@ -146,17 +147,18 @@ def greedy_nms_mask_batched(
     keep = torch.empty_like(valid)
     if lanes == 0 or k == 0:
         return keep
-    index = boxes.device.index
-    stream = _stream(index)
-    words = lanes * k * mask_words(k)
-    capturing = torch.cuda.is_current_stream_capturing()
-    if capturing:
-        mask = _graph_scratch(boxes.device, words)
-    else:
-        mask = _scratch(index, stream, words)
-    _launch("ssd_greedy_nms", index, stream, boxes.data_ptr(), valid.data_ptr(),
-            keep.data_ptr(), mask.data_ptr(), lanes, k, float(iou_threshold),
-            float(border_delta))
+    with span("nms.launch"):
+        index = boxes.device.index
+        stream = _stream(index)
+        words = lanes * k * mask_words(k)
+        capturing = torch.cuda.is_current_stream_capturing()
+        if capturing:
+            mask = _graph_scratch(boxes.device, words)
+        else:
+            mask = _scratch(index, stream, words)
+        _launch("ssd_greedy_nms", index, stream, boxes.data_ptr(), valid.data_ptr(),
+                keep.data_ptr(), mask.data_ptr(), lanes, k, float(iou_threshold),
+                float(border_delta))
     if capturing:
         captured += 1
     else:

@@ -18,6 +18,14 @@ resize, the forward, the decode and the NMS kernel over a static input and
 output, so a chunk costs one copy in, one graph launch and one copy out on
 the host instead of some hundred kernel launches. On the CPU an entry is
 the eager forward.
+
+Each call is a span ``predict`` (its id the predictor's call number) over
+the host stages ``predict.prepare``, ``predict.weights_check``,
+``predict.capture`` (a graph made), ``predict.stack``, ``predict.pin``,
+``predict.launch``, ``predict.read`` and ``predict.finish``
+(``utils.profiling``); the counters ``predict.requests``,
+``predict.images``, ``predict.slots`` (chunks times the batch size),
+``predict.graph_captures`` and ``predict.graph_drops`` count its work.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from torch import nn
 
 from ssd_keras_torch.data.photometric import ConvertTo3Channels
 from ssd_keras_torch.kernels import nms as nms_kernel
+from ssd_keras_torch.utils.profiling import count, span
 
 __all__ = ["SSDPredictor", "device_resize_batch", "resize_bilinear_pil", "to_rgb"]
 
@@ -202,6 +211,7 @@ class SSDPredictor:
         self._max_compiled = max(1, int(max_compiled_shapes))
         self._weights = None  # the parameters' stamp the entries were made with
         self._stream = None
+        self._calls = 0
 
     def _pinned(self, batch: np.ndarray) -> torch.Tensor:
         host = torch.from_numpy(batch)
@@ -242,6 +252,7 @@ class SSDPredictor:
         if stamp != self._weights:
             if self._compiled and self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)  # no dropped graph still runs
+            count("predict.graph_drops", len(self._compiled))
             self._compiled.clear()
             self._weights = stamp
 
@@ -255,12 +266,15 @@ class SSDPredictor:
             self._compiled.move_to_end(key)
             return run
         if self.device.type == "cuda":
-            run = _ShapeGraph(self, ih, iw, torch.from_numpy(np.empty(0, dtype)).dtype)
+            with span("predict.capture"):
+                run = _ShapeGraph(self, ih, iw, torch.from_numpy(np.empty(0, dtype)).dtype)
+            count("predict.graph_captures")
         else:
             run = self._eager
         self._compiled[key] = run
         while len(self._compiled) > self._max_compiled:
             self._compiled.popitem(last=False)
+            count("predict.graph_drops")
         return run
 
     @staticmethod
@@ -271,23 +285,32 @@ class SSDPredictor:
     def predict(self, images: Sequence[np.ndarray]) -> List[np.ndarray]:
         """Detections per image: rows ``[class_id, conf, xmin, ymin, xmax, ymax]``
         in each input image's own pixel coordinates, zero rows removed."""
+        self._calls += 1
+        count("predict.requests")
+        count("predict.images", len(images))
+        with span("predict", id=self._calls):
+            return self._predict(images)
+
+    def _predict(self, images: Sequence[np.ndarray]) -> List[np.ndarray]:
         h, w = self._model_hw
         scales = []
         groups: Dict[Tuple, Tuple[List[int], List[np.ndarray]]] = {}
-        for i, image in enumerate(images):
-            image = np.asarray(image)
-            ih, iw = image.shape[:2]
-            scales.append((iw / w, ih / h))
-            if not (image.ndim == 3 and image.shape[2] == 3):
-                image = to_rgb(image)
-            if not self.resize_on_device and (ih, iw) != (h, w):
-                image = resize_bilinear_pil(image, h, w).astype(np.float32)
-                ih, iw = h, w
-            idxs, arrs = groups.setdefault((ih, iw, image.dtype.str), ([], []))
-            idxs.append(i)
-            arrs.append(image)
+        with span("predict.prepare"):
+            for i, image in enumerate(images):
+                image = np.asarray(image)
+                ih, iw = image.shape[:2]
+                scales.append((iw / w, ih / h))
+                if not (image.ndim == 3 and image.shape[2] == 3):
+                    image = to_rgb(image)
+                if not self.resize_on_device and (ih, iw) != (h, w):
+                    image = resize_bilinear_pil(image, h, w).astype(np.float32)
+                    ih, iw = h, w
+                idxs, arrs = groups.setdefault((ih, iw, image.dtype.str), ([], []))
+                idxs.append(i)
+                arrs.append(image)
 
-        self._drop_stale()
+        with span("predict.weights_check"):
+            self._drop_stale()
         outputs: List[np.ndarray] = [None] * len(images)
         for (ih, iw, _), (idxs, arrs) in groups.items():
             run = self._fused_run(ih, iw, arrs[0].dtype)
@@ -297,28 +320,36 @@ class SSDPredictor:
 
             def drain_one():
                 start, n, out = pending.popleft()
-                dets = self._read(out)
+                with span("predict.read"):
+                    dets = self._read(out)
                 for j in range(n):
                     outputs[idxs[start + j]] = dets[j]
 
             for start in range(0, len(arrs), self.batch_size):
-                chunk = arrs[start : start + self.batch_size]
-                n = len(chunk)
-                if n < self.batch_size:  # pad to the batch size
-                    chunk = chunk + [np.zeros_like(chunk[0])] * (self.batch_size - n)
-                pending.append((start, n, run(self._pinned(np.stack(chunk)))))
+                with span("predict.stack"):
+                    chunk = arrs[start : start + self.batch_size]
+                    n = len(chunk)
+                    if n < self.batch_size:  # pad to the batch size
+                        chunk = chunk + [np.zeros_like(chunk[0])] * (self.batch_size - n)
+                    batch = np.stack(chunk)
+                with span("predict.pin"):
+                    host = self._pinned(batch)
+                with span("predict.launch"):
+                    pending.append((start, n, run(host)))
+                count("predict.slots", self.batch_size)
                 if len(pending) > 2:
                     drain_one()
             while pending:
                 drain_one()
 
-        results = []
-        for dets, (sx, sy) in zip(outputs, scales):
-            keep = (dets[:, 0] != 0) & (dets[:, 1] > self.confidence_thresh)
-            dets = dets[keep].copy()
-            dets[:, [2, 4]] *= sx
-            dets[:, [3, 5]] *= sy
-            results.append(dets)
+        with span("predict.finish"):
+            results = []
+            for dets, (sx, sy) in zip(outputs, scales):
+                keep = (dets[:, 0] != 0) & (dets[:, 1] > self.confidence_thresh)
+                dets = dets[keep].copy()
+                dets[:, [2, 4]] *= sx
+                dets[:, [3, 5]] *= sy
+                results.append(dets)
         return results
 
     def __call__(self, images):

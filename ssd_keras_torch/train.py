@@ -39,6 +39,7 @@ from torch import nn
 from ssd_keras_torch.loss import SSDLoss
 from ssd_keras_torch.models.layers import batch_statistics_over
 from ssd_keras_torch.parallel.sharding import mesh_group
+from ssd_keras_torch.utils.profiling import count, span
 
 __all__ = [
     "SGD",
@@ -222,19 +223,22 @@ def make_train_step(module: nn.Module, optimizer: torch.optim.Optimizer,
 
     def train_step(images: torch.Tensor, y_true: torch.Tensor) -> Dict[str, torch.Tensor]:
         module.train()
-        with batch_statistics_over(group):
+        with span("train.forward"), batch_statistics_over(group):
             y_pred = module(images)
-        if group is None:
-            data_loss = loss_obj.compute_loss(y_true, y_pred).mean()
-            loss = data_loss + l2_penalty(kernels, l2_reg)
+        with span("train.loss"):
+            if group is None:
+                data_loss = loss_obj.compute_loss(y_true, y_pred).mean()
+                loss = data_loss + l2_penalty(kernels, l2_reg)
+            else:
+                data_loss = loss_obj.local_term(y_true, y_pred, group)
+                loss = data_loss + l2_penalty(kernels, l2_reg / world)
+        with span("train.backward"):
             loss.backward()
-        else:
-            data_loss = loss_obj.local_term(y_true, y_pred, group)
-            loss = data_loss + l2_penalty(kernels, l2_reg / world)
-            loss.backward()
-            all_reduce_gradients(params, group)
-        optimizer.step()
-        optimizer.zero_grad(set_to_none=True)
+            if group is not None:
+                all_reduce_gradients(params, group)
+        with span("train.optimizer"):
+            optimizer.step()
+            optimizer.zero_grad(set_to_none=True)
         metrics = torch.stack([loss.detach(), data_loss.detach()])
         if group is not None:
             dist.all_reduce(metrics, group=group)
@@ -439,6 +443,13 @@ class Trainer:
     global, so every rank logs the same losses and its callbacks decide
     the same way; rank 0 alone writes checkpoints and the CSV log
     (``is_writer``), and a restore waits for every rank first.
+
+    Each step is a span ``train.step`` (its id the step count) over
+    ``train.next_batch``, ``train.prepare`` and the step's own
+    ``train.forward``, ``train.loss``, ``train.backward`` and
+    ``train.optimizer``; the epoch's loss read is ``train.epoch_end``; the
+    counters ``train.steps`` and ``train.images`` count the work
+    (``utils.profiling``).
     """
 
     def __init__(self, module: nn.Module, optimizer: torch.optim.Optimizer, train_step,
@@ -523,18 +534,25 @@ class Trainer:
             for cb in callbacks:
                 cb.on_epoch_begin(epoch, {}, self)
             epoch_losses = []
-            t0 = time.time()
+            t0 = time.perf_counter()
             for _ in range(steps_per_epoch):
-                images, y_true = self._prepare(*next(generator)[:2])
-                epoch_losses.append(self.train_step(images, y_true)["loss"])
+                with span("train.step", id=self.step):
+                    with span("train.next_batch"):
+                        batch = next(generator)
+                    with span("train.prepare"):
+                        images, y_true = self._prepare(*batch[:2])
+                    epoch_losses.append(self.train_step(images, y_true)["loss"])
+                count("train.steps")
+                count("train.images", int(images.shape[0]))
                 self.step += 1
-            logs = {"loss": float(torch.stack(epoch_losses).mean())}
+            with span("train.epoch_end"):
+                logs = {"loss": float(torch.stack(epoch_losses).mean())}
             if val_generator is not None and self.eval_step is not None and validation_steps:
                 val_losses = [self.eval_step(*self._prepare(*next(val_generator)[:2]))
                               for _ in range(validation_steps)]
                 logs["val_loss"] = float(torch.stack(val_losses).mean())
             if verbose:
-                dt = time.time() - t0
+                dt = time.perf_counter() - t0
                 msg = " ".join(f"{k}={v:.4f}" for k, v in logs.items())
                 print(f"epoch {epoch + 1}/{epochs} [{dt:.1f}s] {msg}")
             for k, v in logs.items():

@@ -4,7 +4,10 @@ Port of ``ssd_keras_tpu/utils/profiling.py``:
 
 * :func:`trace` -- a ``torch.profiler`` context that writes a Chrome trace
   (open it in Perfetto, ``chrome://tracing`` or TensorBoard's profile
-  plugin),
+  plugin), the program's spans in it,
+* :func:`span`, :func:`spanned`, :func:`count`, :func:`counters`, :func:`spans`,
+  :func:`counted` and :func:`recording` -- the program's spans and counters
+  at its layer boundaries (below),
 * :func:`device_sync` -- ``torch.cuda.synchronize``; a CPU tensor needs no
   wait,
 * :func:`benchmark_fps` -- images a second of ``forward(batch)``, with the
@@ -20,23 +23,43 @@ Port of ``ssd_keras_tpu/utils/profiling.py``:
 The JAX package's ``time_in_jit`` and its chained-checksum timing work
 around a remote TPU whose ``block_until_ready`` does not block; CUDA events
 need neither, so they are not ported.
+
+Spans and counters. ``with span("predict.stack"):`` marks a host stage of
+the program. Off, the default, a span is one check of a flag and of
+``torch.autograd._profiler_enabled()`` and a shared no-op context: it
+allocates nothing and reads no clock. It records while :func:`recording`
+is active or a ``torch.profiler`` runs: a :class:`Span` (name, start and
+end on ``time.perf_counter_ns``, the enclosing span's name, the id of the
+request, batch or step, inherited from the enclosing span, and the time its
+child spans took) into a bounded ring that :func:`spans` returns. While a
+profiler runs it is also an event ``ssd.<name>`` of the profiler's own
+trace, on the clock of the card's kernels: a function-scope record, which
+the profiler does not mirror onto the card's timeline as it mirrors
+``torch.profiler.record_function``. :func:`count` adds to a counter and is
+always on; while spans record it also notes the time, so :func:`counted`
+gives the counts of a window. :func:`counters` reads them, the kernels'
+module counters included. Spans run per request, batch or step, never per
+box or pixel, and none stays open across a ``yield``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import os
 import statistics
 import tempfile
+import threading
 import time
-from typing import Callable, Optional
+from collections import deque
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 __all__ = ["trace", "device_sync", "benchmark_fps", "time_cuda", "time_device", "time_calls",
-           "summary"]
+           "summary", "Span", "span", "spanned", "count", "counters", "counted", "spans", "recording"]
 
 # Cycles of torch.cuda._sleep that hold the card while time_device enqueues:
 # at least 10 ms at the H100's highest SM clock.
@@ -44,11 +67,162 @@ HOLD_CYCLES = 20_000_000
 MAX_SM_CLOCK_HZ = 1.98e9
 
 
+# Spans kept in the ring, and counts noted while spans record: a traced
+# serving window of 2 s holds some 5,000 spans.
+RING_SIZE = 1 << 17
+# Prefix of the program's spans in a profiler's trace.
+SPAN_PREFIX = "ssd."
+
+
+class Span(NamedTuple):
+    """One recorded span: times on ``time.perf_counter_ns``; ``parent`` the
+    enclosing span's name (None at the top); ``id`` the request, batch or
+    step it belongs to; ``child_ns`` the time its child spans took, so its
+    self time is ``end_ns - start_ns - child_ns``."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: Optional[str]
+    id: Optional[int]
+    child_ns: int
+
+
+_ring: deque = deque(maxlen=RING_SIZE)
+_noted: deque = deque(maxlen=RING_SIZE)  # (time_ns, name, n) while spans record
+_counts: Dict[str, int] = {}
+_counts_lock = threading.Lock()
+_recording = 0  # depth of active recording() contexts
+_local = threading.local()
+_profiler_enabled = torch.autograd._profiler_enabled
+
+
+_OFF = contextlib.nullcontext()  # the shared context of a span that does not record
+
+
+def _stack() -> list:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+class _Open:
+    """A span that records: pushed on this thread's stack of open spans."""
+
+    __slots__ = ("name", "id", "parent", "start", "child_ns", "event")
+
+    def __init__(self, name: str, id: Optional[int]):
+        self.name, self.id = name, id
+
+    def __enter__(self):
+        stack = _stack()
+        outer = stack[-1] if stack else None
+        self.parent = outer.name if outer is not None else None
+        if self.id is None and outer is not None:
+            self.id = outer.id
+        self.child_ns = 0
+        self.event = None
+        if _profiler_enabled():
+            self.event = torch._C._profiler._RecordFunctionFast(SPAN_PREFIX + self.name)
+            self.event.__enter__()
+        stack.append(self)
+        self.start = time.perf_counter_ns()
+        return None
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        stack = _stack()
+        stack.pop()
+        if self.event is not None:
+            self.event.__exit__(*exc)
+        took = end - self.start
+        if stack:
+            stack[-1].child_ns += took
+        _ring.append(Span(self.name, self.start, end, self.parent, self.id, self.child_ns))
+        return False
+
+
+def span(name: str, id: Optional[int] = None):
+    """A context that records the stage ``name`` (see the module's
+    docstring); ``id`` names the request, batch or step, else the enclosing
+    span's is taken."""
+    if not (_recording or _profiler_enabled()):
+        return _OFF
+    return _Open(name, id)
+
+
+def spanned(name: str):
+    """A decorator: each call of the function is a span ``name``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``; while spans record, also note when."""
+    with _counts_lock:
+        _counts[name] = _counts.get(name, 0) + n
+    if _recording or _profiler_enabled():
+        _noted.append((time.perf_counter_ns(), name, n))
+
+
+def counters() -> Dict[str, int]:
+    """A snapshot of every counter: those of :func:`count`, and the kernels'
+    module counters under ``nms.launches``, ``nms.captured``,
+    ``jpeg_color.launches`` and ``nvjpeg.batches`` (``nvjpegDecodeBatched``
+    calls), read from their attributes."""
+    from ssd_keras_torch.kernels import jpeg_color, nms
+    from ssd_keras_torch.native import jpeg
+
+    with _counts_lock:
+        out = dict(_counts)
+    out.update({"nms.launches": nms.launches, "nms.captured": nms.captured,
+                "jpeg_color.launches": jpeg_color.launches, "nvjpeg.batches": jpeg.launches})
+    return out
+
+
+def counted(start_ns: int = 0, end_ns: Optional[int] = None) -> Dict[str, int]:
+    """The counts :func:`count` made while spans recorded, from ``start_ns``
+    up to ``end_ns`` on ``time.perf_counter_ns``."""
+    out: Dict[str, int] = {}
+    for t, name, n in list(_noted):
+        if start_ns <= t and (end_ns is None or t < end_ns):
+            out[name] = out.get(name, 0) + n
+    return out
+
+
+def spans() -> List[Span]:
+    """The recorded spans, oldest first (at most ``RING_SIZE``, the newest)."""
+    return list(_ring)
+
+
+@contextlib.contextmanager
+def recording():
+    """Spans record inside the body, with no profiler; the ring and the
+    noted counts are cleared on entry."""
+    global _recording
+    _ring.clear()
+    _noted.clear()
+    _recording += 1
+    try:
+        yield
+    finally:
+        _recording -= 1
+
+
 @contextlib.contextmanager
 def trace(log_dir: Optional[str] = None):
     """Profile the body (CPU, and CUDA when a card is present) and write its
     Chrome trace into ``log_dir`` (default: ``torch-trace`` under the system
-    temp dir) on exit, also when the body raises. Yields ``log_dir``."""
+    temp dir) on exit, also when the body raises. Yields ``log_dir``. The
+    trace holds the program's spans as ``ssd.<name>`` events beside the
+    card's kernels, on one clock: the way to see which host stage the card
+    waits on."""
     from torch.profiler import ProfilerActivity, profile
 
     log_dir = log_dir or os.path.join(tempfile.gettempdir(), "torch-trace")

@@ -43,6 +43,7 @@ from ssd_keras_torch.ops.nms import greedy_nms_mask, iou_suppression_mask, words
 from ssd_keras_torch.parallel import sharding as sh
 from ssd_keras_torch.parallel.dryrun import dryrun_multichip
 from ssd_keras_torch.predictor import WARMUP_CALLS, _ShapeGraph
+from ssd_keras_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -224,6 +225,47 @@ def test_graph_replays_count_nms_launches(cuda):
     before = nms_kernel.launches
     predictor.predict(frames)
     assert nms_kernel.launches == before + 4 and nms_kernel.captured == captured + 2
+
+
+def test_graph_captures_and_spans_are_counted_on_card(cuda):
+    """A shape's first call captures its graph under ``predict.capture``
+    and counts it; a second call replays and captures nothing."""
+    predictor = SSDPredictor(_served_model(cuda), batch_size=2)
+    frames = _frames(3)
+    with profiling.recording():
+        predictor.predict(frames)
+        first = profiling.counted()
+        predictor.predict(frames)
+        both = profiling.counted()
+        names = [s.name for s in profiling.spans()]
+    assert first["predict.graph_captures"] == 2 and both["predict.graph_captures"] == 2
+    assert names.count("predict.capture") == 2 and names.count("predict") == 2
+    assert both["predict.slots"] == 2 * 4 * 2 and both["predict.images"] == 2 * 6
+
+
+def test_a_span_encloses_its_kernels_on_the_traces_clock(cuda):
+    """A span around a launch and a synchronise is an ``ssd.`` event of the
+    profiler's trace whose host interval holds the kernel's device interval
+    (one clock), and the profiler mirrors no span onto the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(2048, 2048, device=cuda)
+    torch.cuda.synchronize()
+    for _ in range(3):  # the card's profiler now and then records no kernel
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profiling.span("probe"):
+                (x @ x).relu_()
+                torch.cuda.synchronize()
+        events = list(prof.profiler.kineto_results.events())
+        card = [e for e in events if e.device_type() == torch.autograd.DeviceType.CUDA]
+        if card:
+            break
+    host = [e for e in events if e.name() == "ssd.probe"]
+    assert len(host) == 1 and host[0].device_type() == torch.autograd.DeviceType.CPU
+    lo, hi = host[0].start_ns(), host[0].start_ns() + host[0].duration_ns()
+    assert card and all(lo <= e.start_ns() and e.start_ns() + e.duration_ns() <= hi
+                        for e in card)
+    assert not [e for e in card if e.name().startswith(profiling.SPAN_PREFIX)]
 
 
 def test_graph_reload_after_serving(cuda):
