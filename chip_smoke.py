@@ -189,7 +189,17 @@ Phases, in order; the first failure raises and the script exits non-zero:
    and one through PIL from the same seeds: the same boxes, the
    generator's img/s each way and the share of a batch's time decoding
    takes; the batch path launches nvJPEG and the colour kernel once a
-   batch.
+   batch; (e) the resize kernel ``csrc/resize_linear.cu`` on the
+   evaluation cell's batch (RESIZE_SHAPES, 4:2:0 at quality 90, to 512 x
+   512): the wrapper bit for bit the plain version ``ops/resize.py`` on
+   the same packed batch, with the kernel's device time (its span in
+   ``torch.profiler``), whole wrapper calls, the plain version's time on
+   the card and the bound of the bytes; then SSD512 (seeded, bf16) through
+   ``Evaluator`` in 'resize' mode over RESIZE_BATCHES such batches, once
+   on the card path (``DataGenerator._generate_on_card``: the resize
+   kernel launched once a batch, every image counted in
+   ``data.device_resized``) and once on the host chain, with the same
+   prediction results and mAP.
 
 15. The public surface: the packages ``data``, ``parallel``, ``utils``,
    ``kernels`` and ``ops`` export the JAX package's names (SURFACE_EXPORTS);
@@ -515,6 +525,13 @@ JPEG_FOLDER_FILES = 256
 JPEG_OPS_PER_PIXEL = 30
 JPEG_COLOR_LIBRARY_NOTE = ("no PyTorch call computes libjpeg's chroma upsampling and "
                            "YCbCr -> RGB conversion")
+# Phase 14 (e): the evaluation cell's batch, six 375x500 and two 500x375
+# 4:2:0 files at quality 90, resized to SSD512's 512 x 512; two batches.
+RESIZE_SHAPES = ((375, 500),) * 6 + ((500, 375),) * 2
+RESIZE_OUT = (512, 512)
+RESIZE_BATCHES = 2
+RESIZE_LIBRARY_NOTE = ("no PyTorch call computes OpenCV's uint8 INTER_LINEAR fixed-point "
+                       "arithmetic bit for bit (F.interpolate rounds in floating point)")
 # The colour kernel's edge cases, each a batch of (kind, height, width)
 # images of seeded random planes (``jpeg_color_case``): every kind at every
 # edge width and height (widths 1 and 2 and 3 give chroma planes two
@@ -2576,9 +2593,96 @@ def jpeg_generator_epoch(folder, labels, jpeg_device, device, seed):
     return time.perf_counter() - t0, batches
 
 
+def resize_part(device, card):
+    """Phase 14 (e): the resize kernel on the evaluation cell's batch,
+    against its plain version and through the evaluator. Returns (its line,
+    its record for the kernels line)."""
+    from ssd_keras_torch.kernels import resize as resize_kernel
+    from ssd_keras_torch.native import jpeg
+    from ssd_keras_torch.ops import resize as plain_resize
+    from ssd_keras_torch.utils import profiling
+
+    n = len(RESIZE_SHAPES) * RESIZE_BATCHES
+    scenes = [jpeg_scene(SEED + 300 + k, *RESIZE_SHAPES[k % len(RESIZE_SHAPES)])
+              for k in range(n)]
+    files = [encode_jpeg(image, quality=90, subsampling=2) for image, _ in scenes]
+
+    # The wrapper against the plain version (on the CPU) on one packed batch.
+    pixels, layout = jpeg.decode_packed(files[:len(RESIZE_SHAPES)], device)
+    got = resize_kernel.resize_linear_u8(pixels, layout, *RESIZE_OUT)
+    want = plain_resize.resize_linear_u8(pixels.cpu(), layout, *RESIZE_OUT)
+    err = int((got.cpu().int() - want.int()).abs().max())
+    if err:
+        raise AssertionError(f"resize kernel != plain on the evaluation cell's batch: max "
+                             f"|diff| {err}")
+    rows = layout.numpy()
+    channels = np.where(rows[:, 7] == jpeg_color.KIND_GRAY, 1, 3)
+    nbytes = int((rows[:, 5] * rows[:, 6] * channels).sum()) + got.numel()
+
+    def call():
+        resize_kernel.resize_linear_u8(pixels, layout, *RESIZE_OUT)
+
+    span_ms = kernel_span_ms(call, "resize_linear_u8")
+    call_ms = time_calls(call, "cuda", iters=20)
+    plain_ms = summary(time_cuda(
+        lambda: plain_resize.resize_linear_u8(pixels, layout, *RESIZE_OUT), 1, warmup=1))
+    bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+
+    # The evaluator over the files: the card path against the host chain.
+    model = model_for(seeded_state("ssd512"), "inference", torch.bfloat16, device, "ssd512")
+    labels = [boxes for _, boxes in scenes]
+    out = {}
+    with tempfile.TemporaryDirectory() as folder:
+        paths = []
+        for k, data in enumerate(files):
+            paths.append(os.path.join(folder, f"{k:06d}.jpg"))
+            with open(paths[-1], "wb") as f:
+                f.write(data)
+        for path in ("card", "host"):
+            gen = DataGenerator(filenames=paths, labels=labels, image_ids=list(range(n)),
+                                eval_neutral=[[False] * len(b) for b in labels],
+                                jpeg_device=device, verbose=False)
+            if path == "host":
+                gen._generate_on_card = lambda resize, gen=gen, **kw: gen.generate(**kw)
+            ev = Evaluator(model, 20, gen, model_mode="inference", device=device)
+            resized = profiling.counters().get("data.device_resized", 0)
+            resize_kernel.launches = 0
+            mean_ap = ev(*RESIZE_OUT, len(RESIZE_SHAPES), verbose=False)
+            out[path] = dict(mean_ap=mean_ap, results=ev.prediction_results,
+                             launches=resize_kernel.launches,
+                             resized=profiling.counters().get("data.device_resized", 0) - resized)
+    card_run, host_run = out["card"], out["host"]
+    if (card_run["launches"], card_run["resized"]) != (RESIZE_BATCHES, n) or host_run["launches"]:
+        raise AssertionError(f"the evaluator's card path: {card_run['launches']} resize launches "
+                             f"for {RESIZE_BATCHES} batches, {card_run['resized']} of {n} images "
+                             f"resized on the card; the host chain launched "
+                             f"{host_run['launches']}")
+    boxes = sum(map(len, card_run["results"]))
+    if card_run["results"] != host_run["results"] or card_run["mean_ap"] != host_run["mean_ap"]:
+        raise AssertionError("the evaluator's card path and host chain give other results")
+    if not boxes:
+        raise AssertionError("the evaluator found no boxes to compare")
+    line = dict(metric="resize_kernel_ms", shape="voc8_512", images=len(rows), bytes=nbytes,
+                max_abs_err=err, kernel_span_ms=span_ms if span_ms is not None else "not measured",
+                call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                evaluator=dict(batches=RESIZE_BATCHES, images=n, launches=card_run["launches"],
+                               device_resized=card_run["resized"], mean_ap=card_run["mean_ap"],
+                               boxes=boxes, results_equal_host_chain=True),
+                card=card)
+    log(f"resize kernel == plain on the evaluation cell's batch; "
+        f"{'not measured' if span_ms is None else f'{span_ms * 1e3:.2f} us'} of kernel, "
+        f"{call_ms['median'] * 1e3:.1f} us a call, bound {bound_ms * 1e3:.2f} us (bytes), plain "
+        f"{plain_ms['median']:.2f} ms; evaluator: {card_run['launches']} launches for "
+        f"{RESIZE_BATCHES} batches, {boxes} boxes and mAP {card_run['mean_ap']:.4f} equal "
+        f"to the host chain's")
+    record = dict(launches=card_run["launches"], max_abs_err=err, line=line)
+    return line, record
+
+
 def jpeg_phase(card):
     """Phase 14: the JPEG batch decoder on the card. Returns (timing lines,
-    the colour kernel's record for the kernels line)."""
+    the colour kernel's and the resize kernel's records for the kernels
+    line)."""
     from ssd_keras_torch.native import jpeg
 
     lines = []
@@ -2716,7 +2820,11 @@ def jpeg_phase(card):
         f"images within {image_diff} levels")
     record = dict(launches=path_launches["colour_kernel"], max_abs_err=max(
         fixtures_part["max_abs_err"], voc_part["max_abs_err"]), part=voc_part)
-    return lines, record
+
+    # (e) The resize kernel: the evaluation cell's batch and the evaluator.
+    resize_line, resized = resize_part(torch.device("cuda"), card)
+    lines.append(resize_line)
+    return lines, record, resized
 
 
 # Phase 15: the names each package re-exports from the JAX package's
@@ -3098,7 +3206,7 @@ def main():
     lines += speed_lines
 
     # 14. The JPEG batch decoder: nvJPEG and the colour kernel against PIL.
-    jpeg_lines, colour = jpeg_phase(card)
+    jpeg_lines, colour, resized = jpeg_phase(card)
     lines += jpeg_lines
 
     # 15. The public surface: the packages' exports and the functions that
@@ -3137,6 +3245,15 @@ def main():
         bound_ms=colour["part"]["bound_ms"], bound_by=colour["part"]["bound_by"],
         library_ms=None, library_note=JPEG_COLOR_LIBRARY_NOTE, shape=colour["part"]["shape"],
         launches_by_path=dict(jpeg_generator=colour["launches"]),
+    ), dict(
+        name="resize_linear_u8", route="cuda", source="ssd_keras_torch/csrc/resize_linear.cu",
+        replaces="ssd_keras_tpu/data/geometric.py:59 (cv2.resize on the host in the evaluator's "
+                 "'resize' chain; no TPU kernel)",
+        launches=resized["launches"], max_abs_err=resized["max_abs_err"],
+        ms=resized["line"]["kernel_span_ms"], call_ms=resized["line"]["call_ms"]["median"],
+        plain_ms=resized["line"]["plain_ms"]["median"], bound_ms=resized["line"]["bound_ms"],
+        bound_by="bytes", library_ms=None, library_note=RESIZE_LIBRARY_NOTE,
+        shape=resized["line"]["shape"], launches_by_path=dict(evaluator=resized["launches"]),
     )]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

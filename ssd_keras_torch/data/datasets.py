@@ -19,7 +19,9 @@ batch decode of a lazy batch of JPEG files (``_get_images_batch``) runs on
 the generator's ``jpeg_device``: the card by default (nvJPEG), ``"cpu"``
 for the JAX package's libjpeg decoder, None for PIL one file at a time.
 Where the JAX package falls back to PIL when its decoder is missing or
-rejects a file, the port raises.
+rejects a file, the port raises. A fifth, private: the evaluator's source
+``_generate_on_card``, which keeps a batch of its 'resize' chain on the card
+(decode, colour and resize kernels) where the batch allows it.
 """
 
 from __future__ import annotations
@@ -35,9 +37,9 @@ from typing import Optional, Sequence
 import numpy as np
 
 from ssd_keras_torch import native
-from ssd_keras_torch.data.geometric import resize_image
+from ssd_keras_torch.data.geometric import INTER_LINEAR, Resize, resize_image, routes_to_linear
 from ssd_keras_torch.data.validation import BoxFilter
-from ssd_keras_torch.utils.profiling import span
+from ssd_keras_torch.utils.profiling import count, span
 
 __all__ = [
     "DataGenerator",
@@ -476,27 +478,38 @@ class DataGenerator:
             return self.hdf5_dataset["images"][index].reshape(shape)
         return self._read_image(self.filenames[index])
 
-    def _get_images_batch(self, indices) -> list:
+    def _jpeg_files(self, indices) -> bool:
+        """Whether the batch ``indices`` is read lazily from files that are
+        all ``.jpg``/``.jpeg``, to be decoded on ``jpeg_device``."""
+        return (self.jpeg_device is not None and self.images is None
+                and self.hdf5_dataset is None and bool(self.filenames)
+                and all(str(self.filenames[i]).lower().endswith((".jpg", ".jpeg"))
+                        for i in indices))
+
+    def _read_files(self, indices) -> list:
+        buffers = []
+        with span("data.read"):
+            for i in indices:
+                with open(self.filenames[i], "rb") as f:
+                    buffers.append(f.read())
+        return buffers
+
+    def _get_images_batch(self, indices, buffers=None) -> list:
         """Fetch a batch of images, decoding JPEG files as one batch.
 
         When reading lazily from disk and every file of the batch is a
         ``.jpg``/``.jpeg``, the whole batch is decoded in one
         ``native.decode_jpeg_batch`` call on ``jpeg_device`` (the card's
         nvJPEG, or ``"cpu"``: libjpeg), which raises if that decoder is
-        missing or rejects a file. Non-JPEG files, mixed batches, in-memory
-        and HDF5-cached datasets, and ``jpeg_device=None`` use the per-image
+        missing or rejects a file; ``buffers`` are the files' bytes, if
+        read already. Non-JPEG files, mixed batches, in-memory and
+        HDF5-cached datasets, and ``jpeg_device=None`` use the per-image
         path, PIL for files.
         """
         indices = [int(i) for i in indices]
-        if (self.jpeg_device is not None and self.images is None
-                and self.hdf5_dataset is None and self.filenames
-                and all(str(self.filenames[i]).lower().endswith((".jpg", ".jpeg"))
-                        for i in indices)):
-            buffers = []
-            with span("data.read"):
-                for i in indices:
-                    with open(self.filenames[i], "rb") as f:
-                        buffers.append(f.read())
+        if self._jpeg_files(indices):
+            if buffers is None:
+                buffers = self._read_files(indices)
             with span("data.decode"):
                 return native.decode_jpeg_batch(buffers, device=self.jpeg_device)
         with span("data.read"):
@@ -519,6 +532,36 @@ class DataGenerator:
         'image_ids', 'evaluation-neutral', 'inverse_transforms',
         'original_images', 'original_labels'.
         """
+        return self._generate(batch_size, shuffle, transformations, label_encoder, returns,
+                              keep_images_without_gt, degenerate_box_handling, None)
+
+    def _generate_on_card(self, resize: Resize, batch_size=32, shuffle=True,
+                          transformations=(), label_encoder=None,
+                          returns=("processed_images", "encoded_labels"),
+                          keep_images_without_gt=False, degenerate_box_handling="remove"):
+        """:meth:`generate` over a chain that the caller knows to end in
+        ``resize`` (a linear ``Resize``) with nothing before it that changes
+        a 3-channel image (the evaluator's 'resize' mode:
+        ``[ConvertTo3Channels(), resize]``). Where the files are read lazily
+        and decoded on a CUDA ``jpeg_device`` and 'original_images' is not
+        asked for, each batch of JPEG files that the colour kernel takes
+        whole and whose sizes ``resize_image`` would resize with ``_linear``
+        (``geometric.routes_to_linear``) stays on the card: nvJPEG, the
+        colour kernel and the resize kernel (``kernels/resize.py``) make its
+        'processed_images', a (B, h, w, 3) uint8 CUDA tensor equal to the
+        host chain's pixels. Labels and inverters come from
+        ``resize.labels_and_inverter``, as in the host chain. Every other
+        batch takes the host chain, as in :meth:`generate`. Each batch adds
+        the images it resized on the card (0 for the host chain) to the
+        counter ``data.device_resized``."""
+        if resize.interpolation_mode != INTER_LINEAR:
+            raise ValueError("the card resizes in INTER_LINEAR only, got interpolation mode "
+                             f"{resize.interpolation_mode}")
+        return self._generate(batch_size, shuffle, transformations, label_encoder, returns,
+                              keep_images_without_gt, degenerate_box_handling, resize)
+
+    def _generate(self, batch_size, shuffle, transformations, label_encoder, returns,
+                  keep_images_without_gt, degenerate_box_handling, resize):
         # 'inverse_transform' (reference spelling) and 'inverse_transforms'
         # are accepted interchangeably.
         returns = ["inverse_transforms" if r == "inverse_transform" else r for r in returns]
@@ -562,6 +605,13 @@ class DataGenerator:
             if hasattr(t, "labels_format"):
                 t.labels_format = self.labels_format
 
+        counting = resize is not None
+        if "original_images" in returns or not self._decodes_on_card():
+            resize = None
+        assemble = dict(returns=returns, label_encoder=label_encoder, box_filter=box_filter,
+                        keep_images_without_gt=keep_images_without_gt,
+                        degenerate_box_handling=degenerate_box_handling)
+
         indices = np.asarray(self.dataset_indices)
         if shuffle:
             indices = np.random.permutation(indices)
@@ -576,130 +626,190 @@ class DataGenerator:
             batch_indices = indices[current : current + batch_size]
             current += batch_size
 
-            batch_X, batch_y = [], []
-            batch_filenames, batch_image_ids, batch_neutral = [], [], []
-            batch_original_images, batch_original_labels = [], []
-            batch_inverse_transforms = []
+            buffers = None
+            if resize is not None and self._jpeg_files(batch_indices):
+                buffers = self._read_files(batch_indices)
+                resized = self._resized_on_card(buffers, resize)
+                if resized is not None:
+                    count("data.device_resized", len(batch_indices))
+                    yield self._assemble(batch_indices, resized[1], transformations,
+                                         on_card=(resized[0], resize), **assemble)
+                    continue
+            if counting:
+                count("data.device_resized", 0)
+            yield self._assemble(batch_indices, self._get_images_batch(batch_indices, buffers),
+                                 transformations, **assemble)
 
-            batch_images = self._get_images_batch(batch_indices)
-            with span("data.transform"):
-                for k, idx in enumerate(batch_indices):
-                    idx = int(idx)
-                    image = batch_images[k]
-                    labels = (
-                        deepcopy(self.labels[idx]) if self.labels is not None else None
-                    )
-                    batch_filenames.append(
-                        self.filenames[idx] if self.filenames is not None else None
-                    )
-                    batch_image_ids.append(
-                        self.image_ids[idx] if self.image_ids is not None else None
-                    )
-                    batch_neutral.append(
-                        self.eval_neutral[idx] if self.eval_neutral is not None else None
-                    )
-                    if "original_images" in returns:
-                        batch_original_images.append(np.copy(image))
-                    if "original_labels" in returns:
-                        batch_original_labels.append(
-                            deepcopy(labels) if labels is not None else None
-                        )
+    def _decodes_on_card(self) -> bool:
+        """Whether lazy JPEG batches are decoded on a card."""
+        if self.jpeg_device is None:
+            return False
+        import torch
 
-                    if (labels is None or labels.size == 0) and not keep_images_without_gt:
-                        batch_X.append(None)
-                        batch_y.append(None)
-                        batch_inverse_transforms.append(None)
-                        continue
+        return torch.device(self.jpeg_device).type == "cuda"
 
-                    inverters = []
-                    failed = False
-                    for transform in transformations:
-                        wants_inverter = "inverse_transforms" in returns and (
-                            "return_inverter"
-                            in _call_params(transform)
-                        )
-                        if labels is None:
-                            if wants_inverter:
-                                out = transform(image, return_inverter=True)
-                                image, inv = out
-                                inverters.append(inv)
-                            else:
-                                image = transform(image)
-                            if image is None:
-                                failed = True
-                                break
-                        else:
-                            if wants_inverter:
-                                out = transform(image, labels, return_inverter=True)
-                                if isinstance(out, tuple) and len(out) == 3:
-                                    image, labels, inv = out
-                                else:
-                                    image, labels = out
-                                    inv = None
-                                if inv is not None:
-                                    if isinstance(inv, list):
-                                        inverters.extend(inv)
-                                    else:
-                                        inverters.append(inv)
-                            else:
-                                image, labels = transform(image, labels)
-                            if image is None:
-                                failed = True
-                                break
+    def _resized_on_card(self, buffers, resize):
+        """The batch ``buffers`` decoded and resized on the card to
+        ``resize``'s size: (images, sizes), the (B, h, w, 3) uint8 tensor
+        and each file's (height, width); None, before anything is decoded,
+        where a file would go to PIL or its size would not take the linear
+        path."""
+        from ssd_keras_torch.kernels import resize as resize_kernel
+        from ssd_keras_torch.native import jpeg
 
-                    if failed:
-                        batch_X.append(None)
-                        batch_y.append(None)
-                        batch_inverse_transforms.append(None)
-                        continue
+        out_h, out_w = resize.out_height, resize.out_width
+        with span("data.decode"):
+            packed = jpeg.decode_packed(
+                buffers, self.jpeg_device,
+                accept=lambda h, w: routes_to_linear(h, w, out_h, out_w))
+        if packed is None:
+            return None
+        pixels, layout = packed
+        with span("data.resize"):
+            images = resize_kernel.resize_linear_u8(pixels, layout, out_h, out_w)
+        return images, [tuple(hw) for hw in layout[:, 5:7].tolist()]
 
-                    if labels is not None and labels.size > 0:
-                        fx = self.labels_format
-                        xmin, ymin = fx["xmin"], fx["ymin"]
-                        xmax, ymax = fx["xmax"], fx["ymax"]
-                        degenerate = np.any(labels[:, xmax] <= labels[:, xmin]) or np.any(
-                            labels[:, ymax] <= labels[:, ymin]
-                        )
-                        if degenerate:
-                            if degenerate_box_handling == "warn":
-                                warnings.warn(
-                                    f"Degenerate ground truth boxes in batch item {idx}."
-                                )
-                            elif box_filter is not None:
-                                labels = box_filter(labels)
-                        if labels.size == 0 and not keep_images_without_gt:
-                            batch_X.append(None)
-                            batch_y.append(None)
-                            batch_inverse_transforms.append(None)
-                            continue
+    def _assemble(self, batch_indices, batch_images, transformations, returns, label_encoder,
+                  box_filter, keep_images_without_gt, degenerate_box_handling, on_card=None):
+        """One batch of ``generate``: ``batch_images`` through the chain,
+        then collated per ``returns``. ``on_card``, for a batch the card
+        resized: (the (B, h, w, 3) tensor, the chain's ``Resize``), with
+        ``batch_images`` each source's (height, width); the chain is then
+        that ``Resize``'s labels and inverter alone, and the processed
+        images are the tensor's rows of the kept items."""
+        batch_X, batch_y = [], []
+        batch_filenames, batch_image_ids, batch_neutral = [], [], []
+        batch_original_images, batch_original_labels = [], []
+        batch_inverse_transforms = []
 
-                    batch_X.append(image)
-                    batch_y.append(labels)
-                    batch_inverse_transforms.append(inverters[::-1])
-
-            with span("data.collate"):
-                # Drop failed/filtered items from every parallel list.
-                keep = [i for i, x in enumerate(batch_X) if x is not None]
-
-                def select(lst):
-                    return [lst[i] for i in keep]
-
-                batch_X = select(batch_X)
-                batch_y = select(batch_y)
-                batch_filenames = select(batch_filenames)
-                batch_image_ids = select(batch_image_ids)
-                batch_neutral = select(batch_neutral)
-                batch_inverse_transforms = select(batch_inverse_transforms)
+        with span("data.transform"):
+            for k, idx in enumerate(batch_indices):
+                idx = int(idx)
+                image = batch_images[k]
+                labels = (
+                    deepcopy(self.labels[idx]) if self.labels is not None else None
+                )
+                batch_filenames.append(
+                    self.filenames[idx] if self.filenames is not None else None
+                )
+                batch_image_ids.append(
+                    self.image_ids[idx] if self.image_ids is not None else None
+                )
+                batch_neutral.append(
+                    self.eval_neutral[idx] if self.eval_neutral is not None else None
+                )
                 if "original_images" in returns:
-                    batch_original_images = select(batch_original_images)
+                    batch_original_images.append(np.copy(image))
                 if "original_labels" in returns:
-                    batch_original_labels = select(batch_original_labels)
-
-                if len(batch_X) == 0:
-                    raise DegenerateBatchError(
-                        "The generated batch is empty: all images were filtered out. "
-                        "Check your transformation chain and keep_images_without_gt."
+                    batch_original_labels.append(
+                        deepcopy(labels) if labels is not None else None
                     )
+
+                if (labels is None or labels.size == 0) and not keep_images_without_gt:
+                    batch_X.append(None)
+                    batch_y.append(None)
+                    batch_inverse_transforms.append(None)
+                    continue
+
+                inverters = []
+                failed = False
+                if on_card is not None:
+                    labels, inverter = on_card[1].labels_and_inverter(*image, labels)
+                    image, inverters = k, [inverter]
+                for transform in transformations if on_card is None else ():
+                    wants_inverter = "inverse_transforms" in returns and (
+                        "return_inverter"
+                        in _call_params(transform)
+                    )
+                    if labels is None:
+                        if wants_inverter:
+                            out = transform(image, return_inverter=True)
+                            image, inv = out
+                            inverters.append(inv)
+                        else:
+                            image = transform(image)
+                        if image is None:
+                            failed = True
+                            break
+                    else:
+                        if wants_inverter:
+                            out = transform(image, labels, return_inverter=True)
+                            if isinstance(out, tuple) and len(out) == 3:
+                                image, labels, inv = out
+                            else:
+                                image, labels = out
+                                inv = None
+                            if inv is not None:
+                                if isinstance(inv, list):
+                                    inverters.extend(inv)
+                                else:
+                                    inverters.append(inv)
+                        else:
+                            image, labels = transform(image, labels)
+                        if image is None:
+                            failed = True
+                            break
+
+                if failed:
+                    batch_X.append(None)
+                    batch_y.append(None)
+                    batch_inverse_transforms.append(None)
+                    continue
+
+                if labels is not None and labels.size > 0:
+                    fx = self.labels_format
+                    xmin, ymin = fx["xmin"], fx["ymin"]
+                    xmax, ymax = fx["xmax"], fx["ymax"]
+                    degenerate = np.any(labels[:, xmax] <= labels[:, xmin]) or np.any(
+                        labels[:, ymax] <= labels[:, ymin]
+                    )
+                    if degenerate:
+                        if degenerate_box_handling == "warn":
+                            warnings.warn(
+                                f"Degenerate ground truth boxes in batch item {idx}."
+                            )
+                        elif box_filter is not None:
+                            labels = box_filter(labels)
+                    if labels.size == 0 and not keep_images_without_gt:
+                        batch_X.append(None)
+                        batch_y.append(None)
+                        batch_inverse_transforms.append(None)
+                        continue
+
+                batch_X.append(image)
+                batch_y.append(labels)
+                batch_inverse_transforms.append(inverters[::-1])
+
+        with span("data.collate"):
+            # Drop failed/filtered items from every parallel list.
+            keep = [i for i, x in enumerate(batch_X) if x is not None]
+
+            def select(lst):
+                return [lst[i] for i in keep]
+
+            batch_X = select(batch_X)
+            batch_y = select(batch_y)
+            batch_filenames = select(batch_filenames)
+            batch_image_ids = select(batch_image_ids)
+            batch_neutral = select(batch_neutral)
+            batch_inverse_transforms = select(batch_inverse_transforms)
+            if "original_images" in returns:
+                batch_original_images = select(batch_original_images)
+            if "original_labels" in returns:
+                batch_original_labels = select(batch_original_labels)
+
+            if len(batch_X) == 0:
+                raise DegenerateBatchError(
+                    "The generated batch is empty: all images were filtered out. "
+                    "Check your transformation chain and keep_images_without_gt."
+                )
+            if on_card is not None:
+                import torch
+
+                images = on_card[0]
+                batch_X_arr = images if len(keep) == len(images) else images[
+                    torch.as_tensor(keep, device=images.device)]
+            else:
                 shapes = {x.shape for x in batch_X}
                 if len(shapes) != 1:
                     raise DegenerateBatchError(
@@ -708,45 +818,45 @@ class DataGenerator:
                     )
                 batch_X_arr = np.array(batch_X)
 
-                batch_y_encoded = None
-                batch_matched = None
-                if label_encoder is not None and self.labels is not None:
-                    wants_matched = "matched_anchors" in returns
-                    if wants_matched:
-                        try:
-                            batch_y_encoded, batch_matched = label_encoder(
-                                batch_y, diagnostics=True
-                            )
-                        except TypeError:  # encoder without diagnostics support
-                            batch_y_encoded = label_encoder(batch_y)
-                    else:
+            batch_y_encoded = None
+            batch_matched = None
+            if label_encoder is not None and self.labels is not None:
+                wants_matched = "matched_anchors" in returns
+                if wants_matched:
+                    try:
+                        batch_y_encoded, batch_matched = label_encoder(
+                            batch_y, diagnostics=True
+                        )
+                    except TypeError:  # encoder without diagnostics support
                         batch_y_encoded = label_encoder(batch_y)
+                else:
+                    batch_y_encoded = label_encoder(batch_y)
 
-                ret = []
-                for r in returns:
-                    if r == "processed_images":
-                        ret.append(batch_X_arr)
-                    elif r == "encoded_labels":
-                        ret.append(batch_y_encoded)
-                    elif r == "matched_anchors":
-                        ret.append(batch_matched)
-                    elif r == "processed_labels":
-                        ret.append(batch_y)
-                    elif r == "filenames":
-                        ret.append(batch_filenames)
-                    elif r == "image_ids":
-                        ret.append(batch_image_ids)
-                    elif r == "evaluation-neutral":
-                        ret.append(batch_neutral)
-                    elif r == "inverse_transforms":
-                        ret.append(batch_inverse_transforms)
-                    elif r == "original_images":
-                        ret.append(batch_original_images)
-                    elif r == "original_labels":
-                        ret.append(batch_original_labels)
-                    else:
-                        raise ValueError(f"Unknown return {r!r}.")
-            yield tuple(ret)
+            ret = []
+            for r in returns:
+                if r == "processed_images":
+                    ret.append(batch_X_arr)
+                elif r == "encoded_labels":
+                    ret.append(batch_y_encoded)
+                elif r == "matched_anchors":
+                    ret.append(batch_matched)
+                elif r == "processed_labels":
+                    ret.append(batch_y)
+                elif r == "filenames":
+                    ret.append(batch_filenames)
+                elif r == "image_ids":
+                    ret.append(batch_image_ids)
+                elif r == "evaluation-neutral":
+                    ret.append(batch_neutral)
+                elif r == "inverse_transforms":
+                    ret.append(batch_inverse_transforms)
+                elif r == "original_images":
+                    ret.append(batch_original_images)
+                elif r == "original_labels":
+                    ret.append(batch_original_labels)
+                else:
+                    raise ValueError(f"Unknown return {r!r}.")
+        return tuple(ret)
 
 
 def _call_params(transform):

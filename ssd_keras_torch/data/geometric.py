@@ -187,6 +187,24 @@ def _fixed_weights(f: np.ndarray):
     return w0, w1
 
 
+def linear_taps_u8(src: int, dst: int, reset: bool):
+    """The taps of a uint8 ``INTER_LINEAR`` resize of ``src`` to ``dst``
+    samples along one axis, as ``_linear`` uses them: the two source
+    indices and their 11-bit weights, int32 each. ``reset`` as in
+    ``_linear_taps`` (the x axis)."""
+    i0, i1, f = _linear_taps(src, dst, reset)
+    w0, w1 = _fixed_weights(f)
+    return i0.astype(np.int32), i1.astype(np.int32), w0, w1
+
+
+def routes_to_linear(height: int, width: int, out_height: int, out_width: int) -> bool:
+    """Whether :func:`resize_image` in ``INTER_LINEAR`` resizes a ``height``
+    x ``width`` image to ``out_height`` x ``out_width`` with ``_linear``:
+    not a copy (the same size), not an exact 2x reduction (``_halve``)."""
+    return ((height, width) != (out_height, out_width)
+            and (height, width) != (2 * out_height, 2 * out_width))
+
+
 def _linear(image: np.ndarray, xtaps, ytaps, native: bool) -> np.ndarray:
     x0, x1, fx = xtaps
     y0, y1, fy = ytaps
@@ -769,29 +787,35 @@ class Resize:
 
     def __call__(self, image, labels=None, return_inverter=False):
         img_height, img_width = image.shape[:2]
-        xmin, ymin, xmax, ymax = _fmt(self.labels_format)
-
         image = resize_image(image, self.out_height, self.out_width, self.interpolation_mode)
-
-        if return_inverter:
-            hs, ws = img_height / self.out_height, img_width / self.out_width
-
-            def inverter(preds):
-                preds = np.copy(preds)
-                preds[:, [ymin + 1, ymax + 1]] = np.round(preds[:, [ymin + 1, ymax + 1]] * hs)
-                preds[:, [xmin + 1, xmax + 1]] = np.round(preds[:, [xmin + 1, xmax + 1]] * ws)
-                return preds
-
+        labels, inverter = self.labels_and_inverter(img_height, img_width, labels)
         if labels is None:
             return (image, inverter) if return_inverter else image
+        return (image, labels, inverter) if return_inverter else (image, labels)
 
+    def labels_and_inverter(self, img_height, img_width, labels=None):
+        """What resizing an ``img_height`` x ``img_width`` image does to its
+        ``labels`` (None stays None) and the inverter that maps predictions
+        back: ``(labels, inverter)``. The card's resize path
+        (``data/datasets.py``) calls it for the images it resizes."""
+        xmin, ymin, xmax, ymax = _fmt(self.labels_format)
+        hs, ws = img_height / self.out_height, img_width / self.out_width
+
+        def inverter(preds):
+            preds = np.copy(preds)
+            preds[:, [ymin + 1, ymax + 1]] = np.round(preds[:, [ymin + 1, ymax + 1]] * hs)
+            preds[:, [xmin + 1, xmax + 1]] = np.round(preds[:, [xmin + 1, xmax + 1]] * ws)
+            return preds
+
+        if labels is None:
+            return None, inverter
         labels = np.copy(labels)
         labels[:, [ymin, ymax]] = np.round(labels[:, [ymin, ymax]] * (self.out_height / img_height))
         labels[:, [xmin, xmax]] = np.round(labels[:, [xmin, xmax]] * (self.out_width / img_width))
         if self.box_filter is not None:
             self.box_filter.labels_format = self.labels_format
             labels = self.box_filter(labels, image_height=self.out_height, image_width=self.out_width)
-        return (image, labels, inverter) if return_inverter else (image, labels)
+        return labels, inverter
 
 
 class ResizeRandomInterp:

@@ -9,20 +9,24 @@ algorithms, and VOC-format results-file export.
 
 The model is any callable ``model(batch) -> tensor`` on ``device``: each
 batch of images is uploaded there (pinned, ``non_blocking``) as it comes
-from the data generator. A 'training'-mode model's raw predictions are
-decoded on the device by ``decoder.decode_detections_fixed`` (the NMS
-kernel on the card), or with ``device_decode=False`` by the host decoder.
-Dispatch and drain are pipelined as in the JAX package: the device computes
-batch N while the host prepares batch N+1, and each batch's detections
-cross back through a pinned buffer and a CUDA event, read only when the
-batch is drained. Matching runs in the host C++ (``native``); its NumPy loop
-is the plain version (:meth:`Evaluator.match_predictions_numpy`). The rest
-is host NumPy vendored from the JAX package.
+from the data generator, or, in the 'resize' mode over lazily read JPEG
+files decoded on the card, made there (``DataGenerator._generate_on_card``:
+nvJPEG, the colour kernel and the resize kernel) and passed as it is. A
+'training'-mode model's raw predictions are decoded on the device by
+``decoder.decode_detections_fixed`` (the NMS kernel on the card), or with
+``device_decode=False`` by the host decoder. Dispatch and drain are
+pipelined as in the JAX package: the device computes batch N while the
+host prepares batch N+1, and each batch's detections cross back through a
+pinned buffer and a CUDA event, read only when the batch is drained.
+Matching runs in the host C++ (``native``); its NumPy loop is the plain
+version (:meth:`Evaluator.match_predictions_numpy`). The rest is host
+NumPy vendored from the JAX package.
 
 Spans (``utils.profiling``): ``eval.predict`` over a pass's prediction, in
 it per batch (the id) ``data.batch`` (the generator's ``next``, with the
-generator's own ``data.*`` stages), ``eval.dispatch`` (upload, forward,
-device decode) and ``eval.drain`` (``eval.read``, the wait for the
+generator's own ``data.*`` stages, ``data.resize`` the resize kernel's
+launch where the batch stays on the card), ``eval.dispatch`` (upload,
+forward, device decode) and ``eval.drain`` (``eval.read``, the wait for the
 detections, and ``eval.bucket``, the inverse transforms and the per-box
 loop); then ``eval.num_gt``, ``eval.match``, ``eval.precision_recall``,
 ``eval.ap`` and ``eval.map``. The counters ``eval.images`` and
@@ -31,6 +35,7 @@ loop); then ``eval.num_gt``, ``eval.match``, ``eval.precision_recall``,
 
 from __future__ import annotations
 
+import functools
 from collections import deque
 from math import ceil
 from typing import Callable
@@ -39,6 +44,7 @@ import numpy as np
 import torch
 
 from ssd_keras_torch import native
+from ssd_keras_torch.data.datasets import DataGenerator
 from ssd_keras_torch.data.geometric import Resize
 from ssd_keras_torch.data.misc import apply_inverse_transforms
 from ssd_keras_torch.data.patch_sampling import RandomPadFixedAR
@@ -51,9 +57,12 @@ from ssd_keras_torch.utils.profiling import count, span, spanned
 __all__ = ["Evaluator", "upload_batch", "HostCopy"]
 
 
-def upload_batch(batch: np.ndarray, device: torch.device) -> torch.Tensor:
+def upload_batch(batch, device: torch.device) -> torch.Tensor:
     """A host image batch as a tensor on ``device``: through pinned memory
-    and a copy that does not make the host wait, on a CUDA device."""
+    and a copy that does not make the host wait, on a CUDA device. A tensor
+    already on ``device`` passes as it is."""
+    if isinstance(batch, torch.Tensor):
+        return batch if batch.device == device else batch.to(device)
     x = torch.from_numpy(np.ascontiguousarray(batch))
     if device.type != "cuda":
         return x.to(device)
@@ -244,11 +253,17 @@ class Evaluator:
             raise ValueError(
                 f"`data_generator_mode` must be 'resize' or 'pad', got {data_generator_mode!r}."
             )
-        transformations.append(
-            Resize(height=img_height, width=img_width, labels_format=self.gt_format)
-        )
+        resize = Resize(height=img_height, width=img_width, labels_format=self.gt_format)
+        transformations.append(resize)
 
-        generator = self.data_generator.generate(
+        # The 'resize' chain keeps a JPEG batch on the card where it can
+        # (``DataGenerator._generate_on_card``); the 'pad' chain, any other
+        # generator and any other batch take ``generate``'s host chain.
+        if data_generator_mode == "resize" and isinstance(self.data_generator, DataGenerator):
+            generate = functools.partial(self.data_generator._generate_on_card, resize)
+        else:
+            generate = self.data_generator.generate
+        generator = generate(
             batch_size=batch_size,
             shuffle=False,
             transformations=transformations,

@@ -1,8 +1,9 @@
 """Build the port's CUDA sources into one shared library and load it.
 
-``nvcc`` compiles ``ssd_keras_torch/csrc/*.cu`` (the NMS kernel and the JPEG
-colour kernel; plain C entry points, no PyTorch headers, so a build takes
-seconds) for Hopper (``sm_90a``), one nvcc a source, all started together,
+``nvcc`` compiles ``ssd_keras_torch/csrc/*.cu`` (the NMS kernel, the JPEG
+colour kernel and the uint8 linear resize; plain C entry points, no PyTorch
+headers, so a build takes seconds) for Hopper (``sm_90a``), one nvcc a
+source, all started together,
 then links them into ``ssd_keras_torch/_build/``, named by a hash of the
 sources: an edited source builds anew at its first use, an unchanged one is
 loaded as it is. Nothing falls back: a missing ``nvcc``, a failed build or a
@@ -146,6 +147,8 @@ def load_library() -> ctypes.CDLL:
     lib.ssd_nms_iou_mask.restype = ctypes.c_int
     lib.ssd_jpeg_ycc_to_rgb.argtypes = [p, ctypes.c_longlong, p, p, p, i, p]
     lib.ssd_jpeg_ycc_to_rgb.restype = ctypes.c_int
+    lib.ssd_resize_linear_u8.argtypes = [p, p, i, i, i, p, p]
+    lib.ssd_resize_linear_u8.restype = ctypes.c_int
     return lib
 
 

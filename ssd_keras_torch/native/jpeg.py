@@ -20,10 +20,12 @@ Two backends, chosen by ``device`` and nothing else:
   all in one allocation on the card. Then one launch of the colour kernel
   (``kernels/jpeg_color.py``: libjpeg's fancy upsampling and YCbCr -> RGB in
   libjpeg's integer arithmetic) writes the pixels, and one copy brings them
-  back into pinned memory. Files of another subsampling than 4:4:4, 4:2:2
-  or 4:2:0 go to PIL too. Any nvJPEG error raises ``ValueError`` with the
-  file's index and the nvJPEG status; nothing falls back to PIL or to the
-  CPU. ``n_threads`` is not used there.
+  back into pinned memory (``decode_packed`` leaves them on the card,
+  packed, for the resize kernel, and waits for nothing). Files of another
+  subsampling than 4:4:4, 4:2:2 or 4:2:0 go to PIL too. Any nvJPEG error
+  raises ``ValueError`` with the file's index and the nvJPEG status;
+  nothing falls back to PIL or to the CPU. ``n_threads`` is not used
+  there.
 - The host (``device="cpu"``): ``ssd_jpeg.cpp``, the JAX package's source,
   built by g++ with ``-ljpeg -lpthread`` only where g++ finds
   ``jpeglib.h``. Where it cannot be built, asking for it raises
@@ -53,7 +55,8 @@ import torch
 from ssd_keras_torch.devices import target_device
 from ssd_keras_torch.ops import jpeg_color
 
-__all__ = ["decode_jpeg_batch", "decode_planes", "jpeg_available", "launches", "JPEG_SOURCE"]
+__all__ = ["decode_jpeg_batch", "decode_packed", "decode_planes", "jpeg_available", "launches",
+           "JPEG_SOURCE"]
 
 JPEG_SOURCE = Path(__file__).resolve().parent / "ssd_jpeg.cpp"
 # The header g++ must find for the host decoder to be built.
@@ -79,9 +82,13 @@ _NVJPEG_STATUS = {
 # below are shared.
 _LOCK = threading.Lock()
 # Pinned host buffers kept across calls ("bitstreams", "pixels"), grown as
-# needed: a call waits for its copies before it returns, so the next one may
-# reuse them.
+# needed. "pixels": a call waits for its copy before it returns, so the next
+# one may reuse it. "bitstreams": a call need not wait for its decode
+# (``decode_packed``), so an event recorded on the stream after each
+# ``nvjpegDecodeBatched`` (``_DECODING``) is waited on before the buffer is
+# staged again; the decoder's own state is ordered by it too.
 _PINNED: dict = {}
+_DECODING: dict = {}
 
 
 def _status(code: int) -> str:
@@ -204,6 +211,12 @@ def _pinned(name: str, nbytes: int) -> torch.Tensor:
     return buf
 
 
+def _recorded(stream) -> torch.cuda.Event:
+    event = torch.cuda.Event()
+    event.record(stream)
+    return event
+
+
 def _header(lib, index: int, i: int, buf: np.ndarray):
     """(components, subsampling, widths, heights) of file ``i``: nvJPEG's
     reading of its frame header, a size for each component."""
@@ -231,11 +244,11 @@ def _kind(comps: int, css: int, widths, heights) -> Optional[int]:
     return kind
 
 
-def _planes(lib, index: int, bufs, stream):
-    """Decode ``bufs`` on card ``index`` to their planes: (planes, layout,
-    out_bytes, files), ``files`` the indices decoded (the rest are for PIL)
-    and ``layout`` their rows for the colour kernel (``ops/jpeg_color.py``).
-    The caller holds ``_LOCK`` until ``stream`` has caught up."""
+def _scan(lib, index: int, bufs):
+    """Read the headers of ``bufs`` on card ``index``: (files, rows,
+    planes_at, planes_bytes, out_bytes), ``files`` the indices the colour
+    kernel takes (the rest are for PIL), ``rows`` their rows for it
+    (``ops/jpeg_color.py``), ``planes_at`` three (offset, pitch) a file."""
     files, rows, planes_at = [], [], []
     planes_bytes = out_bytes = 0
     for i, buf in enumerate(bufs):
@@ -255,6 +268,16 @@ def _planes(lib, index: int, bufs, stream):
         planes_at += offsets
         files.append(i)
         out_bytes += h * w * (1 if kind == jpeg_color.KIND_GRAY else 3)
+    return files, rows, planes_at, planes_bytes, out_bytes
+
+
+def _planes(lib, index: int, bufs, stream, scanned=None):
+    """Decode ``bufs`` on card ``index`` to their planes: (planes, layout,
+    out_bytes, files), ``files`` the indices decoded (the rest are for PIL)
+    and ``layout`` their rows for the colour kernel (``ops/jpeg_color.py``);
+    ``scanned`` is ``_scan``'s answer, if read already. The caller holds
+    ``_LOCK``."""
+    files, rows, planes_at, planes_bytes, out_bytes = scanned or _scan(lib, index, bufs)
     planes = torch.empty(planes_bytes, dtype=torch.uint8, device=torch.device("cuda", index))
     if files:
         _decode_batched(lib, index, bufs, files, planes, planes_at, stream)
@@ -280,6 +303,35 @@ def decode_planes(buffers, device=None):
         result = _planes(lib, index, bufs, stream)
         stream.synchronize()
     return result
+
+
+def decode_packed(buffers, device=None, accept=None):
+    """The card's decode of a batch that stays on the card: ``(pixels,
+    layout)``, the colour kernel's flat uint8 output on ``device`` and its
+    CPU int64 layout (one row a file, in order; ``ops/jpeg_color.py``), or
+    None, before anything is decoded, when a file is not one the colour
+    kernel takes (it would go to PIL) or ``accept(height, width)`` refuses
+    one's size. Nothing waits for the card: the pixels are ready in the
+    current stream's order. A corrupt file raises as in
+    ``decode_jpeg_batch``."""
+    from ssd_keras_torch.kernels import jpeg_color as color_kernel
+    from ssd_keras_torch.kernels.build import load_nvjpeg_library
+
+    device = _device(device)
+    if device.type != "cuda":
+        raise ValueError("decode_packed decodes on the card")
+    lib = load_nvjpeg_library()
+    index = torch.cuda.current_device() if device.index is None else device.index
+    bufs = [np.frombuffer(b, dtype=np.uint8) for b in buffers]
+    with _LOCK, torch.cuda.device(index):
+        scanned = _scan(lib, index, bufs)
+        files, rows = scanned[0], scanned[1]
+        if len(files) != len(bufs) or (accept is not None and not all(
+                accept(*row[5:7]) for row in rows)):  # a row's height, width
+            return None
+        stream = torch.cuda.current_stream(index)
+        planes, layout, out_bytes, _ = _planes(lib, index, bufs, stream, scanned)
+        return color_kernel.ycc_to_rgb(planes, layout, out_bytes), layout
 
 
 def _decode_nvjpeg(buffers, device: torch.device) -> List[np.ndarray]:
@@ -318,6 +370,9 @@ def _decode_batched(lib, index, bufs, files, planes, planes_at, stream) -> None:
     m = len(files)
     sizes = np.array([bufs[i].size for i in files], dtype=np.int64)
     starts = np.cumsum(sizes) - sizes
+    decoding = _DECODING.pop("bitstreams", None)
+    if decoding is not None:
+        decoding.synchronize()  # the last decode has read the staged bitstreams
     staged = _pinned("bitstreams", int(sizes.sum()))
     staged_np = staged.numpy()
     for i, start, size in zip(files, starts, sizes):
@@ -335,15 +390,19 @@ def _decode_batched(lib, index, bufs, files, planes, planes_at, stream) -> None:
                                           for c in range(3)]),
             0, stream.cuda_stream)
 
-    code = decode(range(m))
-    launches += 1
-    if code != 0:
-        for j in range(m):
-            one = decode([j])
-            if one != 0:
-                raise ValueError(f"nvJPEG could not decode image {files[j]}: {_status(one)}.")
-        raise ValueError(f"nvjpegDecodeBatched failed over images {files}: {_status(code)}, "
-                         "though each decodes alone.")
+    try:
+        code = decode(range(m))
+        launches += 1
+        if code != 0:
+            for j in range(m):
+                one = decode([j])
+                if one != 0:
+                    raise ValueError(f"nvJPEG could not decode image {files[j]}: "
+                                     f"{_status(one)}.")
+            raise ValueError(f"nvjpegDecodeBatched failed over images {files}: "
+                             f"{_status(code)}, though each decodes alone.")
+    finally:
+        _DECODING["bitstreams"] = _recorded(stream)
 
 
 # --------------------------------------------------------------------------- #

@@ -174,15 +174,17 @@ def count(name: str, n: int = 1) -> None:
 def counters() -> Dict[str, int]:
     """A snapshot of every counter: those of :func:`count`, and the kernels'
     module counters under ``nms.launches``, ``nms.captured``,
-    ``jpeg_color.launches`` and ``nvjpeg.batches`` (``nvjpegDecodeBatched``
-    calls), read from their attributes."""
-    from ssd_keras_torch.kernels import jpeg_color, nms
+    ``jpeg_color.launches``, ``resize_linear.launches`` and
+    ``nvjpeg.batches`` (``nvjpegDecodeBatched`` calls), read from their
+    attributes."""
+    from ssd_keras_torch.kernels import jpeg_color, nms, resize
     from ssd_keras_torch.native import jpeg
 
     with _counts_lock:
         out = dict(_counts)
     out.update({"nms.launches": nms.launches, "nms.captured": nms.captured,
-                "jpeg_color.launches": jpeg_color.launches, "nvjpeg.batches": jpeg.launches})
+                "jpeg_color.launches": jpeg_color.launches,
+                "resize_linear.launches": resize.launches, "nvjpeg.batches": jpeg.launches})
     return out
 
 

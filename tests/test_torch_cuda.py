@@ -9,10 +9,12 @@ evaluator on the card against the CPU, the COCO tools' lanes, the host C++
 built with g++), the predictor on gray and RGBA frames (no PIL) and through
 its per-shape CUDA graphs (equal to the eager path, NMS launches counted on
 replay, dropped on a weight reload, a scratch of each graph's own), the
-host-chain Trainer, and the JPEG batch decoder (nvJPEG and the colour
+host-chain Trainer, the JPEG batch decoder (nvJPEG and the colour
 kernel against PIL and the kernel's plain version, on nvJPEG's planes and
 on ``chip_smoke.JPEG_COLOR_CASES``' edge cases, errors with the file's
-index, calls from several threads, ``DataGenerator``'s batch path).
+index, calls from several threads, ``DataGenerator``'s batch path), and
+the resize kernel against its plain version and the evaluator's card path
+against the host chain (batches, results, back-to-back decodes).
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither JAX nor the JAX package, so it also runs on a machine with
@@ -30,6 +32,7 @@ import torch.distributed as dist
 
 from chip_smoke import (JPEG_COLOR_CASES, EagerPredictor, StreamModel, noisy_oracle,
                         random_lanes, seeded_state)
+from test_torch_resize import RESIZE_CASES
 from ssd_keras_torch import SSDConfig, SSDInputEncoder, SSDLoss, SSDPredictor, ssd_7, ssd_300
 from ssd_keras_torch import train as T
 from ssd_keras_torch.data import SynthVOC
@@ -782,3 +785,146 @@ def test_generator_decodes_jpeg_batches_on_card(cuda, tmp_path):
     for a, b in zip(out["cuda"], out[None]):
         assert a.shape == b.shape == (3, 251, 333, 3)
         assert np.abs(a.astype(np.int16) - b).max() <= JPEG_COLOR_MAX
+
+
+# --------------------------------------------------------------------------- #
+# The resize kernel and the evaluator's card path
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("channels", [3, 1])
+@pytest.mark.parametrize("src, dst", RESIZE_CASES)
+def test_resize_kernel_equals_plain(cuda, src, dst, channels):
+    """One launch, bit for bit the plain version (which equals
+    ``resize_image_numpy``, ``tests/test_torch_resize.py``)."""
+    from test_torch_resize import _image, _pack
+
+    from ssd_keras_torch.kernels import resize as resize_kernel
+    from ssd_keras_torch.ops import resize as plain
+
+    pixels, layout = _pack([_image(sum(src) + channels, *src, channels)])
+    before = resize_kernel.launches
+    got = resize_kernel.resize_linear_u8(pixels.to(cuda), layout, *dst)
+    torch.cuda.synchronize()
+    assert resize_kernel.launches == before + 1 and got.is_cuda
+    assert torch.equal(got.cpu(), plain.resize_linear_u8(pixels, layout, *dst))
+
+
+@pytest.mark.parametrize("dst", [(512, 512), (300, 300), (31, 17)])
+def test_resize_kernel_equals_plain_on_a_mixed_batch(cuda, dst):
+    """The evaluation cell's two shapes, eight images, gray among them, at
+    ragged offsets: one launch, bit for bit the plain version."""
+    from test_torch_resize import _image, _pack
+
+    from ssd_keras_torch.kernels import resize as resize_kernel
+    from ssd_keras_torch.ops import resize as plain
+
+    images = [_image(k, *((375, 500) if k % 3 else (500, 375)), 1 if k == 5 else 3)
+              for k in range(8)]
+    pixels, layout = _pack(images, gap=7)
+    before = resize_kernel.launches
+    got = resize_kernel.resize_linear_u8(pixels.to(cuda), layout, *dst)
+    again = resize_kernel.resize_linear_u8(pixels.to(cuda), layout, *dst)  # the taps cached
+    torch.cuda.synchronize()
+    assert resize_kernel.launches == before + 2
+    want = plain.resize_linear_u8(pixels, layout, *dst)
+    assert torch.equal(got.cpu(), want) and torch.equal(again.cpu(), want)
+
+
+def _voc_jpegs(tmp_path, n, gray=()):
+    """``n`` seeded scenes of the evaluation cell's two shapes as 4:2:0 JPEG
+    files at quality 90 (``gray``: those written gray), with their boxes."""
+    from chip_smoke import encode_jpeg, jpeg_scene
+    from PIL import Image
+
+    files, labels = [], []
+    for k in range(n):
+        image, boxes = jpeg_scene(k, *((375, 500) if k % 3 else (500, 375)))
+        if k in gray:
+            image = np.asarray(Image.fromarray(image).convert("L"))
+        path = tmp_path / f"{k}.jpg"
+        path.write_bytes(encode_jpeg(image, quality=90, subsampling=2))
+        files.append(str(path))
+        labels.append(boxes)
+    return files, labels
+
+
+def test_card_path_batches_equal_the_host_chains(cuda, tmp_path):
+    """The same nvJPEG files through ``_generate_on_card`` and through
+    ``generate``'s host chain: the images bit for bit, the same labels and
+    inverters; one resize launch and no host pixels a batch."""
+    from test_torch_resize import GENERATOR_RETURNS, _assert_same_batches, _chain
+
+    from ssd_keras_torch.data import DataGenerator
+    from ssd_keras_torch.kernels import resize as resize_kernel
+
+    files, labels = _voc_jpegs(tmp_path, 16, gray=(4,))
+    gen = DataGenerator(filenames=files, labels=labels, image_ids=list(range(16)),
+                        verbose=False)
+    before = resize_kernel.launches
+    kw = dict(batch_size=8, shuffle=False, transformations=_chain(size=(512, 512)),
+              returns=GENERATOR_RETURNS, keep_images_without_gt=True)
+    card_it = gen._generate_on_card(kw["transformations"][-1], **kw)
+    card = [next(card_it) for _ in range(2)]
+    assert resize_kernel.launches == before + 2
+    assert all(b[0].is_cuda and b[0].shape == (8, 512, 512, 3) for b in card)
+    host_it = gen.generate(**kw)
+    host = [next(host_it) for _ in range(2)]
+    _assert_same_batches([(b[0].cpu(),) + b[1:] for b in card], host)
+
+
+def test_evaluator_results_equal_on_the_card_path_and_the_host_chain(cuda, tmp_path):
+    """SSD300 (seeded, bf16) over 12 seeded JPEG files, b8 ('resize'
+    mode): the same prediction results and mAP on both paths."""
+    from ssd_keras_torch.data import DataGenerator
+    from ssd_keras_torch.eval import Evaluator
+    from ssd_keras_torch.kernels import resize as resize_kernel
+
+    files, labels = _voc_jpegs(tmp_path, 12)
+    model, _ = ssd_300(SSDConfig.ssd300(), mode="inference", compute_dtype=torch.bfloat16,
+                       device=cuda)
+    model.load_state_dict(seeded_state("ssd300", SSDConfig.ssd300()))
+    out = {}
+    for path in ("card", "host"):
+        gen = DataGenerator(filenames=files, labels=labels, image_ids=list(range(12)),
+                            eval_neutral=[[False] * len(b) for b in labels], verbose=False)
+        if path == "host":
+            gen._generate_on_card = lambda resize, **kw: gen.generate(**kw)
+        before = resize_kernel.launches
+        ev = Evaluator(model, 20, gen, model_mode="inference", device=cuda)
+        out[path] = (ev(300, 300, 8, verbose=False), ev.prediction_results,
+                     resize_kernel.launches - before)
+    assert out["card"][2] == 2 and out["host"][2] == 0
+    assert out["card"][0] == out["host"][0]
+    assert out["card"][1] == out["host"][1] and sum(map(len, out["card"][1])) > 0
+
+
+def test_decode_packed_back_to_back_equals_one_at_a_time(cuda):
+    """Batches decoded one after another without a wait (the staged
+    bitstreams restaged while the card may still decode the last batch)
+    give the pixels each gives decoded alone; a CMYK file or a refused
+    size leaves the batch to the host, before any decode."""
+    from chip_smoke import encode_jpeg, jpeg_fixtures, jpeg_scene
+    from ssd_keras_torch.native import jpeg
+
+    rng = np.random.RandomState(0)
+    big = []
+    for k in range(6):
+        scene, _ = jpeg_scene(k, 1500, 2000)
+        noise = rng.randint(-40, 40, scene.shape)
+        big.append(encode_jpeg(np.clip(scene + noise, 0, 255).astype(np.uint8), quality=95))
+    batches = [big[k % 6:k % 6 + 3] + big[:k % 2] for k in range(10)]
+    alone = []
+    for b in batches:
+        pixels, layout = jpeg.decode_packed(b, cuda)
+        torch.cuda.synchronize()
+        alone.append((pixels.cpu(), layout))
+    together = [jpeg.decode_packed(b, cuda) for b in batches]
+    torch.cuda.synchronize()
+    for (a, la), (t, lt) in zip(alone, together):
+        assert torch.equal(la, lt) and torch.equal(a, t.cpu())
+    files = jpeg_fixtures()
+    before = jpeg.launches
+    assert jpeg.decode_packed([files["cmyk"], big[0]], cuda) is None
+    assert jpeg.decode_packed(big[:2], cuda, accept=lambda h, w: w != 2000) is None
+    assert jpeg.launches == before

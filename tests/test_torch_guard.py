@@ -218,7 +218,7 @@ def test_wrapper_has_no_fallback_for_other_devices():
 
 def test_kernel_source_is_where_the_build_looks():
     assert (build.CSRC_DIR / "nms.cu").is_file()
-    assert [p.name for p in build._sources()] == ["jpeg_color.cu", "nms.cu"]
+    assert [p.name for p in build._sources()] == ["jpeg_color.cu", "nms.cu", "resize_linear.cu"]
     assert os.path.basename(build.BUILD_DIR) == "_build"
     # The nvJPEG decoder is a library of its own, outside the kernels' glob.
     assert build.NVJPEG_SOURCE.is_file() and build.NVJPEG_SOURCE.parent.name == "native"
@@ -350,6 +350,7 @@ def test_examples_default_to_the_card_and_raise_without_one(example, argv, tmp_p
 
 @pytest.mark.parametrize("module", ["native/jpeg.py", "native/__init__.py",
                                     "kernels/jpeg_color.py", "ops/jpeg_color.py",
+                                    "kernels/resize.py", "ops/resize.py",
                                     "kernels/build.py", "data/datasets.py"])
 def test_jpeg_modules_import_neither_jax_nor_the_jax_package(module):
     """The JPEG decoder's modules name no import of ``jax``, ``flax`` or

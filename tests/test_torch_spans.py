@@ -21,6 +21,7 @@ from ssd_keras_torch.data.device_aug import DeviceSSDAugmentation
 from ssd_keras_torch.encoder import pad_labels
 from ssd_keras_torch.eval.evaluator import Evaluator
 from ssd_keras_torch.kernels import jpeg_color, nms
+from ssd_keras_torch.kernels import resize as resize_kernel
 from ssd_keras_torch.native import jpeg
 from ssd_keras_torch.utils import profiling
 
@@ -96,6 +97,7 @@ def test_counters_are_always_on_and_read_the_kernel_counters():
     assert after["test.widgets"] == before.get("test.widgets", 0) + 3
     assert after["nms.launches"] == nms.launches and after["nms.captured"] == nms.captured
     assert after["jpeg_color.launches"] == jpeg_color.launches
+    assert after["resize_linear.launches"] == resize_kernel.launches
     assert after["nvjpeg.batches"] == jpeg.launches
 
 
