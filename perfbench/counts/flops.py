@@ -1,6 +1,7 @@
-"""FLOPs of SSD300/SSD512 from their layer shapes: 2 a multiply-add of
-every convolution (the heads included); pools, ReLU, the L2 norm and the
-softmax count nothing, as ``torch.utils.flop_counter`` counts them."""
+"""FLOPs of an SSD network from its layer shapes: 2 a multiply-add of
+every convolution in the architecture's table (the heads included); pools,
+ReLU, norms and the softmax count nothing, as ``torch.utils.flop_counter``
+counts them."""
 
 from __future__ import annotations
 
@@ -12,8 +13,7 @@ def conv_flops(config: dict) -> dict:
     sizes = feature_sizes(config)
     out = {}
     for name, cin, cout, k, _, _, _ in conv_table(config):
-        src = name.rsplit("_mbox_", 1)[0] if "_mbox_" in name else name
-        h, w = sizes[src]
+        h, w = sizes[name]
         out[name] = 2 * cin * cout * k * k * h * w
     return out
 

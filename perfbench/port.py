@@ -1,17 +1,17 @@
 """The program under test, ``ssd_keras_torch``, as the benchmark builds it
 from a configuration file: its ``SSDConfig`` and a model holding the
-benchmark's seeded weights."""
+benchmark's seeded weights, from the builder its architecture file names."""
 
 from __future__ import annotations
 
+import importlib
 from typing import Dict
 
 import torch
 
+from perfbench.reference.ssd import architecture
 from ssd_keras_torch.config import SSDConfig
-from ssd_keras_torch.models import ssd_300, ssd_512
 
-BUILDERS = {"ssd300": ssd_300, "ssd512": ssd_512}
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # The configuration file's keys that are fields of SSDConfig.
 _FIELDS = ("img_height", "img_width", "img_channels", "n_classes", "scales", "aspect_ratios",
@@ -26,9 +26,11 @@ def ssd_config(config: dict) -> SSDConfig:
 
 
 def model(config: dict, mode: str, weights: Dict[str, torch.Tensor], device) -> torch.nn.Module:
-    """The port's network for ``config`` in ``mode`` on ``device``, its
-    parameters loaded from ``weights``."""
-    module, _ = BUILDERS[config["architecture"]](
+    """The port's network for ``config`` in ``mode`` on ``device``, from the
+    builder its architecture file names, its parameters loaded from
+    ``weights``."""
+    where, name = architecture(config).PORT_BUILDER.split(":")
+    module, _ = getattr(importlib.import_module(where), name)(
         ssd_config(config), mode=mode, compute_dtype=DTYPES[config["compute_dtype"]],
         device=device)
     module.load_state_dict(weights, strict=True)

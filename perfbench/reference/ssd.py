@@ -1,14 +1,28 @@
-"""SSD300 and SSD512 (Liu et al., arXiv:1512.02325) in plain PyTorch.
+"""The SSD reference in plain PyTorch, whatever the architecture: the
+anchors, the decode of box offsets, the resizes, and the reduced-precision
+rounding of the control. What depends on the architecture (its
+convolutions, feature sizes, parameters and forward pass) is in
+``perfbench/architectures/<architecture>.py``, found by the configuration's
+``architecture``; the functions here of the same names forward to it.
 
-The layer tables, the anchors and the forward pass follow the paper's
-Caffe models as ssd_keras builds them (``keras_ssd300.py``,
-``keras_ssd512.py``): VGG-16 to conv5_3 with 2x2 max pools that pad at the
-end on odd maps, pool5 3x3 stride 1, fc6 3x3 dilation 6, fc7 1x1, the extra
-layers, conv4_3 L2-normalised with a learned per-channel scale (ParseNet),
-and one 3x3 class head and one 3x3 box head a predictor layer. Input is
-(B, H, W, 3) RGB in 0-255; the Caffe preprocessing subtracts the mean and
-swaps to BGR. Class scores are the softmax over the classes, background
-first.
+An architecture file gives:
+
+- ``conv_table(config)``: every convolution, heads included, as
+  (name, in, out, kernel, stride, padding, dilation), the first the one
+  that reads the image;
+- ``feature_sizes(config)``: the (height, width) of every convolution's
+  output and of each predictor source;
+- ``sources(config)``: (feature, channels) of each predictor layer, in the
+  anchors' order;
+- ``parameters(config)``: each parameter's shape and initialisation rule
+  by its name in the port's state dict, in the order the weights are
+  drawn: ``("he_normal", scale)`` (a truncated He-normal kernel, its
+  standard deviation times ``scale``) or ``("constant", value)`` (a bias,
+  a norm's scale, a BatchNorm's weight, bias, running mean or variance);
+- ``forward(config, params, images, quantize=None)``: class scores
+  (B, N, classes) after the softmax and box offsets (B, N, 4) for float32
+  images (B, H, W, 3) in 0-255, in float32, preprocessing included;
+- ``PORT_BUILDER``: the port's builder as ``"module:function"``.
 
 ``forward(..., quantize=torch.float8_e4m3fn)`` rounds every convolution's
 input and weight to that type (one scale a tensor, its largest magnitude
@@ -19,6 +33,7 @@ precision, the control of the comparison that decides ``correct``.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -26,37 +41,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-# (name, in, out, kernel, stride, padding, dilation), in graph order.
-_VGG = [
-    ("conv1_1", 3, 64, 3, 1, 1, 1), ("conv1_2", 64, 64, 3, 1, 1, 1),
-    ("conv2_1", 64, 128, 3, 1, 1, 1), ("conv2_2", 128, 128, 3, 1, 1, 1),
-    ("conv3_1", 128, 256, 3, 1, 1, 1), ("conv3_2", 256, 256, 3, 1, 1, 1),
-    ("conv3_3", 256, 256, 3, 1, 1, 1),
-    ("conv4_1", 256, 512, 3, 1, 1, 1), ("conv4_2", 512, 512, 3, 1, 1, 1),
-    ("conv4_3", 512, 512, 3, 1, 1, 1),
-    ("conv5_1", 512, 512, 3, 1, 1, 1), ("conv5_2", 512, 512, 3, 1, 1, 1),
-    ("conv5_3", 512, 512, 3, 1, 1, 1),
-    ("fc6", 512, 1024, 3, 1, 6, 6), ("fc7", 1024, 1024, 1, 1, 0, 1),
-    ("conv6_1", 1024, 256, 1, 1, 0, 1), ("conv6_2", 256, 512, 3, 2, 1, 1),
-    ("conv7_1", 512, 128, 1, 1, 0, 1), ("conv7_2", 128, 256, 3, 2, 1, 1),
-]
-_EXTRAS = {
-    "ssd300": [("conv8_1", 256, 128, 1, 1, 0, 1), ("conv8_2", 128, 256, 3, 1, 0, 1),
-               ("conv9_1", 256, 128, 1, 1, 0, 1), ("conv9_2", 128, 256, 3, 1, 0, 1)],
-    "ssd512": [("conv8_1", 256, 128, 1, 1, 0, 1), ("conv8_2", 128, 256, 3, 2, 1, 1),
-               ("conv9_1", 256, 128, 1, 1, 0, 1), ("conv9_2", 128, 256, 3, 2, 1, 1),
-               ("conv10_1", 256, 128, 1, 1, 0, 1), ("conv10_2", 128, 256, 4, 1, 1, 1)],
-}
-# (feature, its channels) of each predictor layer.
-_SOURCES = {
-    "ssd300": [("conv4_3_norm", 512), ("fc7", 1024), ("conv6_2", 512), ("conv7_2", 256),
-               ("conv8_2", 256), ("conv9_2", 256)],
-    "ssd512": [("conv4_3_norm", 512), ("fc7", 1024), ("conv6_2", 512), ("conv7_2", 256),
-               ("conv8_2", 256), ("conv9_2", 256), ("conv10_2", 256)],
-}
-# The layers after which a 2x2/2 pool follows ("pool4" feeds conv5_1).
-_POOL_AFTER = {"conv1_2", "conv2_2", "conv3_3", "conv4_3"}
-L2_GAMMA = 20.0
+from perfbench import harness
+
+
+@functools.lru_cache(maxsize=None)
+def _load(root: str, name: str):
+    return harness.load_module("architectures", name)
+
+
+def architecture(config: dict):
+    """The module ``architectures/<config["architecture"]>.py``, loaded once
+    a benchmark root."""
+    return _load(str(harness.ROOT), config["architecture"])
 
 
 def boxes_per_cell(config: dict) -> List[int]:
@@ -64,38 +60,25 @@ def boxes_per_cell(config: dict) -> List[int]:
             for ars in config["aspect_ratios"]]
 
 
-def conv_table(config: dict) -> List[Tuple[str, int, int, int, int, int, int]]:
-    """Every convolution of the network, heads included, as
-    (name, in, out, kernel, stride, padding, dilation)."""
-    arch = config["architecture"]
-    table = list(_VGG) + list(_EXTRAS[arch])
-    classes = config["n_classes"] + 1
-    for (src, ch), n in zip(_SOURCES[arch], boxes_per_cell(config)):
-        table.append((f"{src}_mbox_conf", ch, n * classes, 3, 1, 1, 1))
-        table.append((f"{src}_mbox_loc", ch, n * 4, 3, 1, 1, 1))
-    return table
-
-
-def _out(size: int, k: int, s: int, p: int, d: int) -> int:
+def conv_out(size: int, k: int, s: int, p: int, d: int) -> int:
+    """A convolution's output length along one axis."""
     return (size + 2 * p - d * (k - 1) - 1) // s + 1
 
 
+def conv_table(config: dict) -> List[Tuple[str, int, int, int, int, int, int]]:
+    """Every convolution of the network, heads included, as
+    (name, in, out, kernel, stride, padding, dilation)."""
+    return architecture(config).conv_table(config)
+
+
 def feature_sizes(config: dict) -> Dict[str, Tuple[int, int]]:
-    """The (height, width) of every convolution's output."""
-    h, w = config["img_height"], config["img_width"]
-    sizes = {}
-    for name, _, _, k, s, p, d in _VGG + _EXTRAS[config["architecture"]]:
-        h, w = _out(h, k, s, p, d), _out(w, k, s, p, d)
-        sizes[name] = (h, w)
-        if name in _POOL_AFTER:  # 2x2/2, ceil: pads at the end on odd maps
-            h, w = -(-h // 2), -(-w // 2)
-    sizes["conv4_3_norm"] = sizes["conv4_3"]
-    return sizes
+    """The (height, width) of every convolution's output and source."""
+    return architecture(config).feature_sizes(config)
 
 
 def predictor_sizes(config: dict) -> List[Tuple[int, int]]:
     sizes = feature_sizes(config)
-    return [sizes[src] for src, _ in _SOURCES[config["architecture"]]]
+    return [sizes[src] for src, _ in architecture(config).sources(config)]
 
 
 def anchors(config: dict) -> np.ndarray:
@@ -136,14 +119,14 @@ def anchors(config: dict) -> np.ndarray:
     return np.concatenate([a, var], axis=1)
 
 
+def parameters(config: dict) -> Dict[str, tuple]:
+    """Every parameter's (shape, initialisation rule), in draw order."""
+    return architecture(config).parameters(config)
+
+
 def parameter_shapes(config: dict) -> Dict[str, Tuple[int, ...]]:
-    """Every parameter of the network by its ssd_keras layer name."""
-    shapes = {}
-    for name, cin, cout, k, _, _, _ in conv_table(config):
-        shapes[f"{name}.weight"] = (cout, cin, k, k)
-        shapes[f"{name}.bias"] = (cout,)
-    shapes["conv4_3_norm.gamma"] = (512,)
-    return shapes
+    """Every parameter of the network by its name in the port's state dict."""
+    return {name: shape for name, (shape, _) in parameters(config).items()}
 
 
 def _quantize(t: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -165,34 +148,7 @@ def forward(config: dict, params: Dict[str, torch.Tensor], images: torch.Tensor,
             quantize: Optional[torch.dtype] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Class scores (B, N, classes) after the softmax and box offsets
     (B, N, 4) for float32 images (B, H, W, 3) in 0-255, in float32."""
-    arch = config["architecture"]
-    x = images.float() - torch.tensor(config["subtract_mean"], device=images.device)
-    x = x[..., list(config["swap_channels"])].permute(0, 3, 1, 2)
-    feats = {}
-
-    def conv(x, name, stride, pad, dil):
-        w, b = params[f"{name}.weight"].float(), params[f"{name}.bias"].float()
-        return F.conv2d(_quantize(x, quantize), _quantize(w, quantize), b, stride, pad, dil)
-
-    for name, _, _, _, s, p, d in _VGG + _EXTRAS[arch]:
-        x = F.relu(conv(x, name, s, p, d))
-        feats[name] = x
-        if name in _POOL_AFTER:
-            x = F.max_pool2d(x, 2, 2, ceil_mode=True)
-        if name == "conv5_3":
-            x = F.max_pool2d(x, 3, 1, padding=1)
-    c43 = feats["conv4_3"]
-    norm = torch.sqrt(torch.clamp_min((c43 * c43).sum(1, keepdim=True), 1e-12))
-    feats["conv4_3_norm"] = c43 / norm * params["conv4_3_norm.gamma"].float()[None, :, None, None]
-    classes = config["n_classes"] + 1
-    b = images.shape[0]
-    confs, locs = [], []
-    for src, _ in _SOURCES[arch]:
-        f = feats[src]
-        conf = conv(f, f"{src}_mbox_conf", 1, 1, 1)
-        confs.append(conf.permute(0, 2, 3, 1).reshape(b, -1, classes))
-        locs.append(conv(f, f"{src}_mbox_loc", 1, 1, 1).permute(0, 2, 3, 1).reshape(b, -1, 4))
-    return torch.softmax(torch.cat(confs, 1), -1), torch.cat(locs, 1)
+    return architecture(config).forward(config, params, images, quantize)
 
 
 def decode_boxes(config: dict, offsets: torch.Tensor, anchor8: torch.Tensor) -> torch.Tensor:
@@ -227,8 +183,9 @@ def resize_linear_uint8(image: np.ndarray, height: int, width: int) -> np.ndarra
 def exact_float32() -> None:
     """Float32 arithmetic for what follows: TF32 off, and cuDNN off, whose
     float32 training convolutions with TF32 off give wrong results on the
-    H100 (a loss 0.3% off and bias gradients of ~5e5 on SSD300 at batch 32,
-    where the CPU and PyTorch's own CUDA convolutions agree)."""
+    H100 (a loss 0.3% off and bias gradients of ~5e5 on the 300x300 training
+    cell at batch 32, where the CPU and PyTorch's own CUDA convolutions
+    agree)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.enabled = False

@@ -20,7 +20,7 @@ dampening) updates every parameter at a learning rate warmed up linearly.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
@@ -114,6 +114,12 @@ def learning_rate(opt: dict, step: int) -> float:
     return (start - opt["lr"]) * (1.0 - step / opt["warmup_steps"]) + opt["lr"]
 
 
+def l2_kernels(config: dict) -> List[str]:
+    """The parameters the L2 penalty covers: the convolution kernels, which
+    the architecture draws He-normal (a BatchNorm's weight is not one)."""
+    return [k for k, (_, (rule, _)) in ssd.parameters(config).items() if rule == "he_normal"]
+
+
 def sgd_steps(config: dict, params: Dict[str, torch.Tensor], batches, opt: dict,
               quantize=None):
     """SGD with momentum over ``batches`` of (float32 images (B, H, W, 3),
@@ -121,7 +127,7 @@ def sgd_steps(config: dict, params: Dict[str, torch.Tensor], batches, opt: dict,
     step's loss (the data term plus the L2 term), the first step's clipped
     gradient, and the parameters after the last step."""
     params = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
-    kernels = [k for k in params if k.endswith(".weight")]
+    kernels = l2_kernels(config)
     buffers = {}
     losses, first_grad = [], None
     for step, (images, y_true) in enumerate(batches):

@@ -1,6 +1,7 @@
 """A cell run at a tiny size on the CPU: the harness's look for a card is
 skipped, everything else of a run is driven (``tiny_run``)."""
 
+import json
 import time
 import types
 
@@ -9,21 +10,15 @@ import torch
 
 from perfbench import harness
 
-# Shrunk traffic, so that the CPU runs a cell in seconds.
-TINY = {
-    "ssd300_voc.serve_open": dict(traffic=dict(rate_per_s=2.0, images_per_request=[1, 3],
-                                               pool_per_shape=2), check=dict(requests=3)),
-    "ssd300_voc.serve_overload": dict(traffic=dict(rate_per_s=40.0, images_per_request=[1, 3],
-                                                   pool_per_shape=2), check=dict(requests=3)),
-    "ssd512_voc.eval_voc07": dict(traffic=dict(images=16, warmup_images=8),
-                                  check=dict(images=8), jpeg_device="cpu"),
-    "ssd300_voc.train_device_aug": dict(traffic=dict(images=16, steps_per_epoch=1), batch_size=8),
-}
-
 
 def tiny_cell(name: str) -> dict:
+    """The cell's file with the shrunk traffic of ``tests/tiny/<cell>.json``
+    (so that the CPU runs the cell in seconds) merged in: a dict into the
+    cell's dict of that key, anything else in place of the cell's value."""
     cell = harness.load_json("cells", name)
-    for key, value in TINY[name].items():
+    with open(harness.ROOT / "tests" / "tiny" / f"{name}.json") as f:
+        tiny = json.load(f)
+    for key, value in tiny.items():
         if isinstance(value, dict):
             cell[key] = dict(cell[key], **value)
         else:

@@ -32,9 +32,21 @@ def test_the_harness_drivers_and_readers_load_no_forbidden_module():
 
 
 def test_the_reference_loads_nothing_of_the_port():
-    loaded = _loaded("import perfbench.reference.ssd, perfbench.reference.decode, "
-                     "perfbench.reference.compare, perfbench.reference.voc, "
-                     "perfbench.counts.flops, perfbench.counts.roofline, perfbench.weights")
+    # Every architecture file, and what each configuration asks of its own.
+    code = ("import perfbench.reference.ssd, perfbench.reference.decode, "
+            "perfbench.reference.compare, perfbench.reference.voc, "
+            "perfbench.counts.flops, perfbench.counts.roofline, perfbench.weights\n"
+            "from perfbench import harness\n"
+            "from perfbench.counts import flops\n"
+            "from perfbench.reference import ssd\n"
+            "[harness.load_module('architectures', p.stem)"
+            " for p in sorted((harness.ROOT / 'architectures').glob('*.py'))"
+            " if p.stem != '__init__']\n"
+            "for c in harness.manifest()['configs']:\n"
+            "    config = harness.load_json('configs', c['name'])\n"
+            "    ssd.anchors(config), flops.train_flops(config), ssd.parameter_shapes(config)\n"
+            "    ssd.architecture(config).PORT_BUILDER\n")
+    loaded = _loaded(code)
     assert not loaded & {"ssd_keras_torch", *harness.FORBIDDEN}
 
 

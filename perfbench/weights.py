@@ -1,14 +1,13 @@
 """Seeded SSD weights, made on the card in a few calls and handed alike to
 the program and to the reference.
 
-He-normal kernels truncated at two standard deviations (the flax and Keras
-``he_normal``: std sqrt(2 / fan_in) / 0.8796), zero biases, the L2 norm's
-scale at 20. Then, so that the outputs sit in a trained detector's range,
-conv1_1 is scaled by 1/100 (raw He init carries the 0-255 input's
-magnitude through the trunk and saturates the softmax) and the box heads
-by 1/4 (encoded offsets of ~0.4 RMS keep each box near its anchor): the
-arithmetic of the port's ``examples/common.py:scale_to_trained_range``,
-frozen here.
+One flat draw, truncated at two standard deviations, over every kernel of
+the architecture (the parameters whose rule is ``("he_normal", scale)``),
+in the order the architecture lists them; each kernel is its slice of the
+draw times the He standard deviation, sqrt(2 / fan_in) / 0.8796 (the flax
+and Keras ``he_normal``), times its ``scale``. Every other parameter is
+its rule's ``("constant", value)``. The architecture file
+(``perfbench/architectures/<architecture>.py``) gives the rules.
 """
 
 from __future__ import annotations
@@ -18,32 +17,28 @@ from typing import Dict
 
 import torch
 
-from perfbench.reference.ssd import L2_GAMMA, parameter_shapes
+from perfbench.reference.ssd import parameters
 
 HE_TRUNCATED_STD = 0.87962566103423978
 
 
 def seeded(config: dict, seed: int, device) -> Dict[str, torch.Tensor]:
     """Every parameter of ``config``'s network, float32 on ``device``."""
-    shapes = parameter_shapes(config)
-    kernels = {k: s for k, s in shapes.items() if k.endswith(".weight")}
+    params = parameters(config)
+    kernels = {k: shape for k, (shape, (rule, _)) in params.items() if rule == "he_normal"}
     total = sum(math.prod(s) for s in kernels.values())
     gen = torch.Generator(device=device).manual_seed(seed)
     flat = torch.empty(total, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(flat, 0.0, 1.0, -2.0, 2.0, generator=gen)
     out, at = {}, 0
-    for name, shape in shapes.items():
-        if name in kernels:
+    for name, (shape, (rule, value)) in params.items():
+        if rule == "he_normal":
             n = math.prod(shape)
-            std = math.sqrt(2.0 / (shape[1] * shape[2] * shape[3])) / HE_TRUNCATED_STD
-            if name == "conv1_1.weight":
-                std *= 0.01
-            elif name.endswith("_mbox_loc.weight"):
-                std *= 0.25
+            std = math.sqrt(2.0 / math.prod(shape[1:])) / HE_TRUNCATED_STD * value
             out[name] = flat[at:at + n].view(shape).mul_(std)
             at += n
-        elif name == "conv4_3_norm.gamma":
-            out[name] = torch.full(shape, L2_GAMMA, dtype=torch.float32, device=device)
+        elif rule == "constant":
+            out[name] = torch.full(shape, value, dtype=torch.float32, device=device)
         else:
-            out[name] = torch.zeros(shape, dtype=torch.float32, device=device)
+            raise ValueError(f"{name}: no initialisation rule {rule!r}")
     return out
