@@ -39,7 +39,7 @@ from ssd_keras_torch import native
 from ssd_keras_torch.kernels.nms import greedy_nms_mask_batched
 from ssd_keras_torch.ops import boxes as box_ops
 from ssd_keras_torch.ops.boxes import border_delta as _border_delta
-from ssd_keras_torch.utils.profiling import span
+from ssd_keras_torch.utils.profiling import count, span
 
 __all__ = [
     "decode_offsets",
@@ -54,6 +54,12 @@ __all__ = [
     "greedy_nms",
     "greedy_nms_numpy",
 ]
+
+
+# NMS lanes recorded into CUDA graphs: ``_nms_lanes`` adds each call's lanes
+# here under capture, where ``decode.lanes`` counts them on an eager call;
+# the predictor counts a graph's share at each replay.
+captured_lanes = 0
 
 
 def _f32(x: float) -> float:
@@ -188,8 +194,15 @@ def _per_class_topk(scores, corners, k: int, thresh: float):
 def _nms_lanes(cand_boxes, valid, iou_threshold, border_delta, max_output_size):
     """Greedy-NMS keep mask (..., K) of boxes (..., K, 4) and valid (..., K),
     the leading axes flattened into the kernel's lanes; at most
-    ``max_output_size`` survivors a lane."""
+    ``max_output_size`` survivors a lane. Counts the lanes in
+    ``decode.lanes`` (in ``captured_lanes`` under CUDA-graph capture)."""
+    global captured_lanes
     k = valid.shape[-1]
+    lanes = valid.numel() // k if k else 0
+    if valid.is_cuda and torch.cuda.is_current_stream_capturing():
+        captured_lanes += lanes
+    else:
+        count("decode.lanes", lanes)
     # The gathers can return strided tensors (at batch 1 they do); the NMS
     # kernel takes contiguous ones.
     keep = greedy_nms_mask_batched(

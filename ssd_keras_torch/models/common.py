@@ -97,29 +97,32 @@ class SSDModule(nn.Module):
         return out
 
     def conv(self, x: torch.Tensor, name: str) -> torch.Tensor:
-        """The named ``nn.Conv2d`` on ``x``, its f32 weight and bias cast to
-        ``x``'s dtype at use (flax's ``.astype(dtype)``)."""
-        m = getattr(self, name)
+        """The named ``nn.Conv2d`` (a dotted path for a nested one) on ``x``,
+        its f32 weight and bias cast to ``x``'s dtype at use (flax's
+        ``.astype(dtype)``)."""
+        m = self.get_submodule(name)
         weight, bias = self.cast_params(
             (name, x.dtype), (m.weight, m.bias), lambda w, b: (w.to(x.dtype), b.to(x.dtype)))
         return F.conv2d(x, weight, bias, m.stride, m.padding, m.dilation)
 
     def heads(self, feat: torch.Tensor, conf_name: str, loc_name: str):
         """The named conf and loc heads on ``feat`` as one convolution
-        (``fused_prediction_heads``); their weights are fused and cast as
+        (``fused_prediction_heads``) at the conf head's stride and padding,
+        which the loc head shares; their weights are fused and cast as
         ``conv`` casts. Returns the two NHWC maps."""
         conf, loc = getattr(self, conf_name), getattr(self, loc_name)
         weight, bias = self.cast_params(
             (conf_name, loc_name, feat.dtype), (conf.weight, loc.weight, conf.bias, loc.bias),
             lambda cw, lw, cb, lb: fuse_head_params(cw, lw, cb, lb, feat.dtype))
-        return fused_prediction_heads(feat, weight, bias, conf.out_channels)
+        return fused_prediction_heads(feat, weight, bias, conf.out_channels, conf.stride,
+                                      conf.padding)
 
 
 def init_weights(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:
     """He-normal conv kernels, zero biases (flax ``he_normal``: a normal
     truncated at 2 std, std = sqrt(2 / fan_in) / 0.8796...), drawn from
     ``generator``. L2Normalization keeps its gamma of 20, BatchNorm its unit
-    scale and zero shift."""
+    scale and zero shift; a conv without a bias has none to zero."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, nn.Conv2d):
@@ -127,7 +130,8 @@ def init_weights(module: nn.Module, generator: Optional[torch.Generator] = None)
                 std = math.sqrt(2.0 / fan_in) / 0.87962566103423978
                 nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
                                       generator=generator)
-                nn.init.zeros_(m.bias)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
 
 
 def same_pool_size(s: int) -> int:

@@ -214,15 +214,18 @@ def fuse_head_params(conf_weight: torch.Tensor, loc_weight: torch.Tensor,
 
 
 def fused_prediction_heads(
-    feat: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, n_conf: int
+    feat: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, n_conf: int,
+    stride: Union[int, Tuple[int, int]] = 1, padding: Union[int, Tuple[int, int]] = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run the 3x3 conf and loc heads of one feature map as a single conv.
+    """Run the conf and loc heads of one feature map as a single conv.
 
     ``weight`` and ``bias`` come from :func:`fuse_head_params`; the
-    convolution's per-channel results equal the two separate ones. Returns
-    the first ``n_conf`` channels (conf) and the rest (loc), both permuted
-    to NHWC, the order the prediction tensor's boxes follow
+    convolution's per-channel results equal the two separate ones. The
+    heads share ``stride`` and ``padding``: 1 and 1 for the VGG SSDs'
+    3x3 heads, 3 and 1 for SSD-ResNet34's, whose anchors tile the strided
+    grid. Returns the first ``n_conf`` channels (conf) and the rest (loc),
+    both permuted to NHWC, the order the prediction tensor's boxes follow
     (``models/common.py``).
     """
-    out = F.conv2d(feat, weight, bias, padding=1).permute(0, 2, 3, 1)
+    out = F.conv2d(feat, weight, bias, stride, padding).permute(0, 2, 3, 1)
     return out[..., :n_conf], out[..., n_conf:]

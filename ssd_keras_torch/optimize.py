@@ -12,7 +12,10 @@ Folding math (per output channel c, Keras BN semantics):
     bias'_c   = beta_c + (bias_c - mean_c) * scale_c
 
 which makes ``conv'(x) == bn(conv(x))`` exactly (up to float rounding).
-Serve the folded parameters with ``ssd_7(..., fold_bn=True)``.
+A conv without a bias (torchvision's ResNet convolutions) folds with
+``bias_c = 0`` and gains one. Serve the folded parameters with
+``ssd_7(..., fold_bn=True)``; SSD-ResNet34 folds its own
+(``models/ssd_r34.py``, at torchvision's epsilon 1e-5).
 """
 
 from __future__ import annotations
@@ -76,11 +79,12 @@ def fold_batchnorm(
       pairs: explicit ``(conv_name, bn_name)`` pairs; auto-detected from the
         ``conv{i}``/``bn{i}`` naming convention when omitted.
       epsilon: the BN epsilon the model was built with (Keras default 1e-3,
-        as in models/ssd7.py).
+        as in models/ssd7.py; torchvision's is 1e-5).
 
     Returns:
-      the state_dict with each conv folded and every BN entry removed; load
-      it into a model built with ``fold_bn=True``.
+      the state_dict with each conv folded (a conv with no ``bias`` entry
+      gets one) and every BN entry removed; load it into a model built
+      with ``fold_bn=True``.
     """
     bn_names = _bn_layers(state_dict)
     if not bn_names:
@@ -97,7 +101,8 @@ def fold_batchnorm(
         var = _f64(state_dict[f"{bn_name}.running_var"])
         scale = gamma / np.sqrt(var + epsilon)
         kernel = _f64(kernel_t) * scale[:, None, None, None]  # OIHW: out channels first
-        bias = beta + (_f64(state_dict[f"{conv_name}.bias"]) - mean) * scale
+        conv_bias = state_dict.get(f"{conv_name}.bias")
+        bias = beta + ((0.0 if conv_bias is None else _f64(conv_bias)) - mean) * scale
         out[f"{conv_name}.weight"] = _like(kernel, kernel_t)
         out[f"{conv_name}.bias"] = _like(bias, kernel_t)
         for key in ("weight", "bias", "running_mean", "running_var"):

@@ -25,7 +25,8 @@ the host stages ``predict.prepare``, ``predict.weights_check``,
 ``predict.launch``, ``predict.read`` and ``predict.finish``
 (``utils.profiling``); the counters ``predict.requests``,
 ``predict.images``, ``predict.slots`` (chunks times the batch size),
-``predict.graph_captures`` and ``predict.graph_drops`` count its work.
+``predict.graph_captures`` and ``predict.graph_drops`` count its work, and
+each graph replay adds its NMS lanes to the decoder's ``decode.lanes``.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ssd_keras_torch import decoder
 from ssd_keras_torch.data.photometric import ConvertTo3Channels
 from ssd_keras_torch.kernels import nms as nms_kernel
 from ssd_keras_torch.utils.profiling import count, span
@@ -149,11 +151,13 @@ class _ShapeGraph:
             for _ in range(WARMUP_CALLS):
                 predictor._run(self.static_in)
             self.graph = torch.cuda.CUDAGraph()
-            before = nms_kernel.captured
+            before, lanes_before = nms_kernel.captured, decoder.captured_lanes
             with torch.cuda.graph(self.graph, stream=stream):
                 self.static_out = predictor._run(self.static_in)
-            # The NMS wrapper calls the graph holds; each replay launches them.
+            # The NMS wrapper calls and lanes the graph holds; each replay
+            # launches them.
             self.nms_calls = nms_kernel.captured - before
+            self.nms_lanes = decoder.captured_lanes - lanes_before
         torch.cuda.current_stream(device).wait_stream(stream)
         self.keep_alive = predictor._graph_inputs()
 
@@ -166,6 +170,7 @@ class _ShapeGraph:
             self.graph.replay()
             out = self.static_out.clone()
         nms_kernel.replayed(self.nms_calls)
+        count("decode.lanes", self.nms_lanes)
         return out
 
 

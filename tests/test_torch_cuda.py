@@ -7,8 +7,9 @@ a one-rank NCCL step against the plain step, the dry run on two gloo ranks
 sharing the card), and the evaluation path (SSD512 against the CPU, the
 evaluator on the card against the CPU, the COCO tools' lanes, the host C++
 built with g++), the predictor on gray and RGBA frames (no PIL) and through
-its per-shape CUDA graphs (equal to the eager path, NMS launches counted on
-replay, dropped on a weight reload, a scratch of each graph's own), the
+its per-shape CUDA graphs (equal to the eager path, NMS launches and
+decode lanes counted on replay, dropped on a weight reload, a scratch of
+each graph's own; SSD-ResNet34's, its BatchNorms folded once), the
 host-chain Trainer, the JPEG batch decoder (nvJPEG and the colour
 kernel against PIL and the kernel's plain version, on nvJPEG's planes and
 on ``chip_smoke.JPEG_COLOR_CASES``' edge cases, errors with the file's
@@ -228,6 +229,45 @@ def test_graph_replays_count_nms_launches(cuda):
     before = nms_kernel.launches
     predictor.predict(frames)
     assert nms_kernel.launches == before + 4 and nms_kernel.captured == captured + 2
+
+
+def test_graph_replays_count_decode_lanes(cuda):
+    """An eager decode counts its lanes in ``decode.lanes``; a capture
+    counts none, and each replay counts the lanes its graph holds."""
+    predictor = SSDPredictor(_served_model(cuda), batch_size=2)
+    frames = _frames(2)
+    before = profiling.counters().get("decode.lanes", 0)
+    predictor.predict(frames)
+    # Two shapes: one eager warm-up each, then two replays each, 2 x 20 lanes a call.
+    assert profiling.counters()["decode.lanes"] == before + 40 * (2 * WARMUP_CALLS + 4)
+    assert [run.nms_lanes for run in predictor._compiled.values()] == [40, 40]
+    before = profiling.counters()["decode.lanes"]
+    predictor.predict(frames[:3])
+    assert profiling.counters()["decode.lanes"] == before + 40 * 2
+
+
+def test_ssd_r34_graphs_equal_its_eager_forward_and_fold_once(cuda):
+    """SSD-ResNet34 at 1200x1200 in bf16 through the predictor's graphs:
+    the BatchNorms folded once before the capture, the replayed detections
+    equal to the eager path's bit for bit, 80 lanes an image."""
+    from ssd_keras_torch.models import ssd_r34
+
+    model, _ = ssd_r34(mode="inference", compute_dtype=torch.bfloat16, device=cuda,
+                       generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for i in range(6):
+            getattr(model, f"conf{i}").weight.mul_(0.125)
+            getattr(model, f"loc{i}").weight.mul_(0.0625)
+    folded = profiling.counters().get("model.bn_folded", 0)
+    cached = SSDPredictor(model, batch_size=2)
+    frames = [np.random.RandomState(i).randint(0, 256, (480, 640, 3), dtype=np.uint8)
+              for i in range(3)]
+    got = cached.predict(frames)
+    assert profiling.counters()["model.bn_folded"] == folded + 29
+    assert [run.nms_lanes for run in cached._compiled.values()] == [160]
+    for dets, ref in zip(got, EagerPredictor(model, batch_size=2).predict(frames)):
+        np.testing.assert_array_equal(dets, ref)
+    assert profiling.counters()["model.bn_folded"] == folded + 29
 
 
 def test_graph_captures_and_spans_are_counted_on_card(cuda):
