@@ -22,7 +22,8 @@ Phases, in order; the first failure raises and the script exits non-zero:
    card, from seeded weights: at f32 (TF32 off) against the same port on
    the CPU, at bf16 (finite, in-frame output), then 'inference_fast', then
    bf16 at batch 1. The
-   NMS launch count is reset before and read after; it must have moved. The
+   NMS launch count is reset before and read after; it must have moved. So
+   is the convolutions' epilogue count, which must read 29 a forward. The
    path must not make the host wait for the device.
 5. Serving through ``SSDPredictor``'s per-shape CUDA graphs (the cast,
    resize, forward, decode and NMS kernel captured once a shape): (a) it
@@ -30,14 +31,15 @@ Phases, in order; the first failure raises and the script exits non-zero:
    first of each shape capturing its graph; (b) each answer equals the
    eager path's (``EagerPredictor``; bit-equal expected, phase 4's
    SCORE_TOL and BOX_TOL at most); (c) replayed, the requests make no host
-   synchronisation outside the predictor's read and count one NMS launch a
-   replay; (d) with ``max_compiled_shapes=2`` a third shape (360x480)
-   evicts the least recent graph, which is captured again when its shape
-   returns, and a reload of other weights drops the graphs, every answer
-   equal to the eager path's; the memory each graph's pool holds at batch
-   8; (e) graphs against the eager path, interleaved over SERVE_AB_ROUNDS
-   rounds of the 8 x 300x300 and 5 x 480x640 requests: ms a request (host
-   clock) and the card's busy share (``torch.profiler``). A failed capture
+   synchronisation outside the predictor's read and count one NMS launch
+   and each graph's 29 epilogue launches a replay; (d) with
+   ``max_compiled_shapes=2`` a third shape (360x480) evicts the least
+   recent graph, which is captured again when its shape returns, and a
+   reload of other weights drops the graphs, every answer equal to the
+   eager path's; the memory each graph's pool holds at batch 8; (e)
+   graphs against the eager path, interleaved over SERVE_AB_ROUNDS rounds
+   of the 8 x 300x300 and 5 x 480x640 requests: ms a request (host clock)
+   and the card's busy share (``torch.profiler``). A failed capture
    raises.
 6. Timings (CUDA events after warm-up): SSD300 batch-8 'inference' img/s at
    bf16 and f32; at bf16, serving from the kept bf16 copies of the f32
@@ -228,9 +230,23 @@ Phases, in order; the first failure raises and the script exits non-zero:
    replay equals the eager output bit for bit (``torch.equal``); the same
    model at f32 with TF32 off, the bf16 output within ENTRY_BF16_REL_L2 of
    it on the class probabilities and the box offsets, the anchors equal.
-   The path launches no hand-written kernel. Its line: eager and replay ms
+   The path launches no NMS or colour kernel (the convolutions' epilogue,
+   phase 18, runs in its no-grad forward). Its line: eager and replay ms
    (CUDA events, median of 5 x 20 calls), the eager call's device time, the
    graph pool's MB and the card.
+
+18. The convolutions' epilogue kernel (``csrc/conv_epilogue.cu``) on
+   ``EPILOGUE_CASES``: SSD-ResNet34's and SSD300's b8 bf16 maps and edge
+   cases (fp16, float32, NCHW, 3 channels, misaligned, ragged), NaN, +-0.0
+   and +-inf planted; the kernel equal bit for bit to its plain version and
+   to PyTorch's add_ / add_ / relu_ on the card (raising otherwise). Its
+   line: each case's profiler time, whole calls, the plain version's and
+   PyTorch's three ops (``library_ms``), the bound of its bytes at 3.35
+   TB/s and the share of it (``EPILOGUE_TARGET_SHARE`` on maps of
+   ``EPILOGUE_TARGET_BYTES`` or more, reported, not gated); the device time
+   of a b8 no-grad forward of SSD-ResNet34 at 1200x1200 and of SSD300 with
+   the kernel and with PyTorch's ops in its place, and the launches a
+   forward (45 and 29, gated).
 
 It prints JSON lines (timings, then the kernels line), then as its last line
 ``{"ok": true, "device": {...}}``. With no CUDA device it raises before
@@ -282,6 +298,7 @@ from ssd_keras_torch.examples.common import card_line, scale_to_trained_range
 # over [-20, 280), so that the clamps and the negative taps are reached.
 from ssd_keras_torch.examples.opencv_parity import noise as image_op_noise
 from ssd_keras_torch.kernels import build
+from ssd_keras_torch.kernels import conv_epilogue as epilogue_kernel
 from ssd_keras_torch.kernels import jpeg_color as jpeg_color_kernel
 from ssd_keras_torch.kernels import nms as nms_kernel
 from ssd_keras_torch.models import ssd300_predictor_sizes
@@ -552,6 +569,52 @@ JPEG_COLOR_CASES = {
 # Each plane of a case starts 0-17 bytes after the one before it, so rows
 # start at every offset from a 16-byte boundary.
 JPEG_COLOR_GAP_MAX = 17
+
+# Phase 18: the convolutions' epilogue kernel (csrc/conv_epilogue.cu). The
+# main path's maps, b8 bf16 channels_last: SSD-ResNet34's at 1200x1200
+# (conv1's 600x600x64; a block of each layer, conv2 with the identity as
+# its residual; layer2's downsample; the first extra; the two heads' fused
+# 340 and 510 channels) and SSD300's (conv1_1, conv4_x, fc7, its heads' 100
+# and 150). Then edge cases: fp16 and float32, NCHW, 3 channels, maps one
+# element off a 16-byte boundary, a ragged size. Every map has NaN, +-0.0
+# and +-inf planted. (name: (N, C, H, W), dtype, residual, relu, layout,
+# elements before the map in its buffer).
+EPILOGUE_CASES = {
+    "r34_conv1": ((8, 64, 600, 600), "bfloat16", False, True, "channels_last", 0),
+    "r34_layer1_conv2": ((8, 64, 300, 300), "bfloat16", True, True, "channels_last", 0),
+    "r34_layer2_conv2": ((8, 128, 150, 150), "bfloat16", True, True, "channels_last", 0),
+    "r34_layer2_downsample": ((8, 128, 150, 150), "bfloat16", False, False, "channels_last", 0),
+    "r34_layer3_conv2": ((8, 256, 150, 150), "bfloat16", True, True, "channels_last", 0),
+    "r34_extra0_conv2": ((8, 512, 75, 75), "bfloat16", False, True, "channels_last", 0),
+    "r34_head0": ((8, 340, 50, 50), "bfloat16", False, False, "channels_last", 0),
+    "r34_head1": ((8, 510, 25, 25), "bfloat16", False, False, "channels_last", 0),
+    "ssd300_conv1_1": ((8, 64, 300, 300), "bfloat16", False, True, "channels_last", 0),
+    "ssd300_conv4_3": ((8, 512, 38, 38), "bfloat16", False, True, "channels_last", 0),
+    "ssd300_fc7": ((8, 1024, 19, 19), "bfloat16", False, True, "channels_last", 0),
+    "ssd300_head0": ((8, 100, 38, 38), "bfloat16", False, False, "channels_last", 0),
+    "ssd300_head1": ((8, 150, 19, 19), "bfloat16", False, False, "channels_last", 0),
+    "fp16_residual": ((2, 64, 37, 41), "float16", True, True, "channels_last", 0),
+    "f32_residual": ((2, 64, 37, 41), "float32", True, True, "channels_last", 0),
+    "f32_head": ((2, 340, 13, 13), "float32", False, False, "channels_last", 0),
+    "nchw_bf16": ((2, 64, 37, 40), "bfloat16", True, True, "nchw", 0),
+    "nchw_ragged": ((3, 5, 7, 3), "float16", False, True, "nchw", 0),
+    "three_channels": ((2, 3, 33, 35), "bfloat16", False, True, "channels_last", 0),
+    "misaligned_bf16": ((2, 64, 19, 19), "bfloat16", True, True, "channels_last", 1),
+    "misaligned_f32": ((2, 256, 9, 9), "float32", True, False, "channels_last", 3),
+    "one_pixel": ((1, 486, 1, 1), "bfloat16", True, True, "channels_last", 0),
+}
+# The epilogue launches a no-grad forward: SSD300's 23 convolutions and 6
+# fused heads, SSD-ResNet34's 29 folded trunk convolutions, 10 extras and 6
+# heads.
+EPILOGUES_A_FORWARD = dict(ssd300=29, ssd_r34=45)
+# The main path's maps of this many bytes or more, each way, should move at
+# this share of 3.35 TB/s or more.
+EPILOGUE_TARGET_BYTES = 5e6
+EPILOGUE_TARGET_SHARE = 0.80
+EPILOGUE_LAUNCH_GAP_MS = 0.003
+EPILOGUE_LIBRARY_NOTE = ("library_ms: PyTorch's add_ of the (1, C, 1, 1) bias, add_ of the "
+                         "residual and relu_ on the same map, the three passes the kernel "
+                         "replaces")
 
 
 def log(msg):
@@ -881,13 +944,15 @@ def graph_pool_bytes(graph):
 
 def serving_phase(bf16, state, device, card):
     """Phase 5: ``SSDPredictor`` through its per-shape CUDA graphs. Returns
-    (JSON lines, NMS launches of the first requests, launches by part)."""
+    (JSON lines, NMS launches of the first requests, launches by part, the
+    epilogue's launches of the first requests and of their replays)."""
     predictor = SSDPredictor(bf16, batch_size=BATCH)
     requests = serving_requests(SEED + 2, [("8 x 300x300", 8, (300, 300)),
                                            ("5 x 480x640", 5, (480, 640)),
                                            ("1 x 300x300", 1, (300, 300))])
     # (a) The requests, the first of each shape capturing its graph.
     nms_kernel.launches = 0
+    epilogue_kernel.launches = 0
     answers = []
     for name, images in requests:
         new_shape = (*images[0].shape[:2], "|u1") not in predictor._compiled
@@ -905,6 +970,7 @@ def serving_phase(bf16, state, device, card):
             f"{'capturing its shape' if new_shape else 'replayed'}), "
             f"{sum(len(d) for d in out)} detections")
     serve_launches = nms_kernel.launches
+    epilogues = dict(serving_requests=epilogue_kernel.launches)
     if serve_launches < len(requests):
         raise AssertionError(f"serving launched the NMS kernel {serve_launches} times")
     if list(predictor._compiled) != [(480, 640, "|u1"), (300, 300, "|u1")]:
@@ -919,14 +985,23 @@ def serving_phase(bf16, state, device, card):
     # (c) Replays: NMS launches counted, no host sync outside the read.
     launches = {}
     nms_kernel.launches = 0
+    epilogue_kernel.launches = 0
     with sync_checked_outside_the_predictor_read():
         for (name, images), out in zip(requests, answers):
             same_answers(f"request {name}, replayed", predictor.predict(images), out)
     launches["serving_graph_replays"] = nms_kernel.launches
+    epilogues["serving_graph_replays"] = epilogue_kernel.launches
     if nms_kernel.launches != len(requests):
         raise AssertionError(f"{len(requests)} replays counted {nms_kernel.launches} NMS launches")
+    held = {hw: graph.epilogue_calls for hw, graph in predictor._compiled.items()}
+    expected = len(requests) * EPILOGUES_A_FORWARD["ssd300"]
+    if (set(held.values()) != {EPILOGUES_A_FORWARD["ssd300"]}
+            or epilogue_kernel.launches != expected):
+        raise AssertionError(f"graphs hold {held} epilogues; {len(requests)} replays counted "
+                             f"{epilogue_kernel.launches}, expected {expected}")
     log("graph replays: no host synchronisation outside the predictor's read "
-        "(torch.cuda sync debug mode 'error'); one NMS launch counted a replay")
+        "(torch.cuda sync debug mode 'error'); one NMS launch and each graph's "
+        f"{EPILOGUES_A_FORWARD['ssd300']} epilogue launches counted a replay")
 
     # (d) Two shapes at most: a third evicts the least recent, which is made
     # again when it comes back; then other weights are loaded.
@@ -996,7 +1071,7 @@ def serving_phase(bf16, state, device, card):
                       **busy, timer="torch.profiler over one pass of both requests", card=card))
     for line in lines:
         log(f"{line['metric']}: {json.dumps({k: v for k, v in line.items() if k != 'metric'})}")
-    return lines, serve_launches, launches
+    return lines, serve_launches, launches, epilogues
 
 
 def cast_ab(state, bf16, x, card):
@@ -3051,7 +3126,7 @@ def entry_phase(card):
                                   repeats=ENTRY_TIMED_REPEATS))
     eager_device_ms = time_calls(lambda: forward(model, x), device, iters=5)
     if (nms_kernel.launches, jpeg_color_kernel.launches) != (nms_before, colour_before):
-        raise AssertionError("entry: the training-mode path launched a hand-written kernel")
+        raise AssertionError("entry: the training-mode path launched the NMS or colour kernel")
     line = dict(metric="graft_entry", batch=graft_entry.BATCH, dtype="bf16", mode="training",
                 shape=list(y.shape), replay_bit_equal=True, bf16_vs_f32_rel_l2=rel,
                 bf16_vs_f32_limits=ENTRY_BF16_REL_L2, eager_ms=eager_ms, replay_ms=replay_ms,
@@ -3059,12 +3134,161 @@ def entry_phase(card):
                 timer=f"CUDA events, {ENTRY_TIMED_REPEATS} x {ENTRY_TIMED_ITERS} calls back to "
                       "back (replay: graph.replay() alone)",
                 graph_pool_mb=pool / 2 ** 20 if isinstance(pool, int) else pool,
-                reserved_delta_mb=reserved_delta / 2 ** 20, hand_written_kernels_launched=0,
+                reserved_delta_mb=reserved_delta / 2 ** 20, nms_or_colour_launches=0,
                 card=card)
     log(f"phase 17: entry eager {eager_ms['median']:.3f} ms, replay {replay_ms['median']:.3f} "
         f"ms (bit-equal), pool {line['graph_pool_mb']} MB, bf16 vs f32 {rel}")
     del captured
     return line
+
+
+def epilogue_inputs(case, device, seed=SEED):
+    """``y``, ``bias`` and ``residual`` (or None) of ``EPILOGUE_CASES[case]``
+    on ``device``, made from ``seed`` (the same tensors again for the same
+    seed): normal values (sd 2) with NaN, +-0.0 and +-inf planted, each map
+    placed its case's offset into a buffer of its own."""
+    shape, dtype, residual, _, layout, offset = EPILOGUE_CASES[case]
+    n, c, h, w = shape
+    dtype = getattr(torch, dtype)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    strides = (c * h * w, 1, w * c, c) if layout == "channels_last" else (c * h * w, h * w, w, 1)
+    numel = n * c * h * w
+
+    def one_map():
+        flat = torch.empty(numel + offset, dtype=dtype, device=device).normal_(0, 2, generator=gen)
+        for k, value in enumerate([float("nan"), -0.0, 0.0, float("inf"), float("-inf")]):
+            flat[offset + (k * 7919) % numel] = value
+        return flat.as_strided(shape, strides, offset)
+
+    y = one_map()
+    bias = torch.empty(c, dtype=dtype, device=device).normal_(0, 0.5, generator=gen)
+    bias[0] = -0.0
+    return y, bias, one_map() if residual else None
+
+
+def library_epilogue(y, bias, residual, relu):
+    """PyTorch's three ops in place: the bias's broadcast add_, the
+    residual's add_, relu_."""
+    y.add_(bias.view(1, -1, 1, 1))
+    if residual is not None:
+        y.add_(residual)
+    return y.relu_() if relu else y
+
+
+def same_bits(a, b):
+    """Bit-equal tensors of one dtype and shape."""
+    ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return torch.equal(a.contiguous().view(ints), b.contiguous().view(ints))
+
+
+def epilogue_part(case, device):
+    """One case of phase 18: the kernel against its plain version and
+    PyTorch's three ops on the card, bit for bit (raising otherwise), and
+    their times beside the bound of the bytes the map needs."""
+    from ssd_keras_torch.ops import conv_epilogue as plain_epilogue
+
+    shape, dtype, residual, relu, layout, offset = EPILOGUE_CASES[case]
+    y, bias, res = epilogue_inputs(case, device)
+    got = epilogue_kernel.conv_epilogue(y, bias, res, relu)
+    plain = plain_epilogue.conv_epilogue(epilogue_inputs(case, device)[0], bias, res, relu)
+    library = library_epilogue(epilogue_inputs(case, device)[0], bias, res, relu)
+    torch.cuda.synchronize()
+    if not (same_bits(got, plain) and same_bits(got, library)):
+        bad = (got.float() != plain.float()) & ~(got.isnan() & plain.isnan())
+        raise AssertionError(f"epilogue kernel != plain on {case}: {int(bad.sum())} elements "
+                             f"differ, library equal: {same_bits(got, library)}")
+    map_bytes = y.numel() * y.element_size()
+    nbytes = map_bytes * (3 if residual else 2) + bias.numel() * bias.element_size()
+    bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    calls = 20 if map_bytes < 1e8 else 5
+
+    def kernel():
+        epilogue_kernel.conv_epilogue(y, bias, res, relu)
+
+    call_ms = time_calls(kernel, "cuda", iters=calls)
+    span_ms = kernel_span_ms(kernel, "bias_act", calls=calls)
+    # A profiling session sometimes keeps only some of the kernel's records:
+    # a span shorter than the whole call's device time less 3 us of launch
+    # gap is such a session. Measured again once, else not measured.
+    floor_ms = call_ms["median"] - EPILOGUE_LAUNCH_GAP_MS
+    if span_ms is not None and span_ms < floor_ms:
+        span_ms = kernel_span_ms(kernel, "bias_act", calls=calls)
+        if span_ms is not None and span_ms < floor_ms:
+            span_ms = None
+    plain_ms = time_calls(lambda: plain_epilogue.conv_epilogue(y, bias, res, relu), "cuda",
+                          iters=calls)
+    library_ms = time_calls(lambda: library_epilogue(y, bias, res, relu), "cuda", iters=calls)
+    share = bound_ms / span_ms if span_ms else None
+    main_path = case.startswith(("r34_", "ssd300_"))
+    return dict(case=case, shape=list(shape), dtype=dtype, residual=residual, relu=relu,
+                layout=layout, offset=offset, bytes=nbytes, bit_equal=True,
+                kernel_span_ms=span_ms if span_ms is not None else "not measured",
+                call_ms=call_ms["median"], plain_ms=plain_ms["median"],
+                library_ms=library_ms["median"], bound_ms=bound_ms, bound_by="bytes",
+                roofline_share=share,
+                meets_target=(None if not main_path or map_bytes < EPILOGUE_TARGET_BYTES
+                              or share is None else share >= EPILOGUE_TARGET_SHARE))
+
+
+def epilogue_forward_ms(model, x, device):
+    """Device ms of one no-grad forward of ``model`` on ``x``: with the
+    epilogue kernel, and with PyTorch's three ops in its place (the
+    parent's passes, the same convolutions); and the kernel's launches a
+    forward."""
+    forward = model.predictions if hasattr(model, "predictions") else model
+    # Some 200 launches a forward: three forwards keep the launch queue
+    # short of its ~1000 entries.
+    fused_ms = time_calls(lambda: forward(x), device, iters=3)
+    epilogue_kernel.launches = 0
+    forward(x)
+    launches = epilogue_kernel.launches
+    kernel = epilogue_kernel.conv_epilogue
+    epilogue_kernel.conv_epilogue = library_epilogue
+    try:
+        library_ms = time_calls(lambda: forward(x), device, iters=3)
+    finally:
+        epilogue_kernel.conv_epilogue = kernel
+    return dict(fused_ms=fused_ms["median"], library_ms=library_ms["median"],
+                launches_per_forward=launches)
+
+
+def epilogue_phase(card):
+    """Phase 18, the convolutions' epilogue kernel on the card. Returns
+    (its JSON line, its record for the kernels line)."""
+    from ssd_keras_torch.models import ssd_r34
+
+    device = torch.device("cuda")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cases = [epilogue_part(case, device) for case in EPILOGUE_CASES]
+    torch.cuda.empty_cache()
+    x = torch.from_numpy(np.random.RandomState(SEED + 18).randint(
+        0, 256, (BATCH, 1200, 1200, 3)).astype(np.float32)).to(device)
+    r34, _ = ssd_r34(mode="inference", compute_dtype=torch.bfloat16, device=device,
+                     generator=torch.Generator().manual_seed(SEED))
+    forwards = dict(ssd_r34_1200_b8=epilogue_forward_ms(r34, x, device))
+    del r34, x
+    x = torch.from_numpy(np.random.RandomState(SEED + 19).randint(
+        0, 256, (BATCH, 300, 300, 3)).astype(np.float32)).to(device)
+    forwards["ssd300_b8"] = epilogue_forward_ms(
+        model_for(seeded_state(), "training", torch.bfloat16, device), x, device)
+    expected = dict(ssd_r34_1200_b8=EPILOGUES_A_FORWARD["ssd_r34"],
+                    ssd300_b8=EPILOGUES_A_FORWARD["ssd300"])
+    got = {k: v["launches_per_forward"] for k, v in forwards.items()}
+    if got != expected:
+        raise AssertionError(f"epilogue launches a forward {got}, expected {expected}")
+    missed = [c["case"] for c in cases if c["meets_target"] is False]
+    line = dict(metric="conv_epilogue_ms", cases=cases, forwards=forwards,
+                target=f"{EPILOGUE_TARGET_SHARE:.0%} of 3.35 TB/s on maps of "
+                       f"{EPILOGUE_TARGET_BYTES / 1e6:g} MB and more",
+                below_target=missed, library_note=EPILOGUE_LIBRARY_NOTE,
+                seconds=time.perf_counter() - t0, card=card)
+    log(f"phase 18: epilogue kernel == plain == PyTorch's ops on {len(cases)} cases; "
+        + ", ".join(f"{c['case']} {c['roofline_share'] or 0:.0%}" for c in cases[:13])
+        + f" of the byte bound; below target: {missed or 'none'}; forwards {forwards}")
+    main = next(c for c in cases if c["case"] == "r34_conv1")
+    record = dict(forwards=got, main=main, line=line)
+    return line, record
 
 
 def main():
@@ -3101,22 +3325,33 @@ def main():
     fast = model_for(state, "inference_fast", torch.float32, device)
 
     nms_kernel.launches = 0
+    epilogue_kernel.launches = 0
+    epilogues = []
     det_f32 = f32(x)
     torch.cuda.synchronize()
     after_f32 = nms_kernel.launches
+    epilogues.append(epilogue_kernel.launches)
     det_bf16 = bf16(x)
     torch.cuda.synchronize()
     after_bf16 = nms_kernel.launches
+    epilogues.append(epilogue_kernel.launches)
     det_fast = fast(x)
     torch.cuda.synchronize()
     after_fast = nms_kernel.launches
+    epilogues.append(epilogue_kernel.launches)
     det_one = bf16(x[:1])  # batch 1: the per-class gathers come back strided
     torch.cuda.synchronize()
     main_launches = nms_kernel.launches
+    main_epilogues = epilogue_kernel.launches
+    epilogues.append(main_epilogues)
     log(f"main path NMS launches: f32 {after_f32}, bf16 {after_bf16 - after_f32}, "
-        f"fast {after_fast - after_bf16}, bf16 batch 1 {main_launches - after_fast}")
+        f"fast {after_fast - after_bf16}, bf16 batch 1 {main_launches - after_fast}; "
+        f"epilogue launches after each run {epilogues}")
     if not (0 < after_f32 < after_bf16 < after_fast < main_launches):
         raise AssertionError("the main path did not launch the NMS kernel in every run")
+    if epilogues != [EPILOGUES_A_FORWARD["ssd300"] * (k + 1) for k in range(4)]:
+        raise AssertionError(f"the main path's epilogue launches after each run {epilogues}, "
+                             f"expected {EPILOGUES_A_FORWARD['ssd300']} a forward")
 
     for name, det in (("f32", det_f32), ("bf16", det_bf16), ("fast", det_fast),
                       ("bf16 batch 1", det_one)):
@@ -3157,7 +3392,8 @@ def main():
                        cpu_fast.numpy(), SCORE_TOL, BOX_TOL)
 
     # 5. Serving, through the predictor's per-shape CUDA graphs.
-    serve_lines, serve_launches, graph_launches = serving_phase(bf16, state, device, card)
+    serve_lines, serve_launches, graph_launches, serve_epilogues = serving_phase(
+        bf16, state, device, card)
 
     # 6. Timings.
     lines = list(serve_lines)
@@ -3220,6 +3456,10 @@ def main():
     # 17. The graft entry: eager, its CUDA graph, and bf16 against f32.
     lines.append(entry_phase(card))
 
+    # 18. The convolutions' epilogue kernel.
+    epilogue_line, epilogue = epilogue_phase(card)
+    lines.append(epilogue_line)
+
     for line in lines:
         print(json.dumps(line), flush=True)
 
@@ -3254,6 +3494,18 @@ def main():
         plain_ms=resized["line"]["plain_ms"]["median"], bound_ms=resized["line"]["bound_ms"],
         bound_by="bytes", library_ms=None, library_note=RESIZE_LIBRARY_NOTE,
         shape=resized["line"]["shape"], launches_by_path=dict(evaluator=resized["launches"]),
+    ), dict(
+        name="conv_epilogue", route="cuda", source="ssd_keras_torch/csrc/conv_epilogue.cu",
+        replaces="none (XLA fuses the bias, residual add and ReLU into the JAX package's "
+                 "convolutions)",
+        launches=main_epilogues, max_abs_err=0, ms=epilogue["main"]["kernel_span_ms"],
+        call_ms=epilogue["main"]["call_ms"], plain_ms=epilogue["main"]["plain_ms"],
+        bound_ms=epilogue["main"]["bound_ms"], bound_by="bytes",
+        library_ms=epilogue["main"]["library_ms"], library_note=EPILOGUE_LIBRARY_NOTE,
+        shape=epilogue["main"]["case"],
+        launches_by_path=dict(main_path=main_epilogues, **serve_epilogues,
+                              ssd_r34_forward=epilogue["forwards"]["ssd_r34_1200_b8"],
+                              ssd300_forward=epilogue["forwards"]["ssd300_b8"]),
     )]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

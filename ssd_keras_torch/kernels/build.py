@@ -1,7 +1,8 @@
 """Build the port's CUDA sources into one shared library and load it.
 
 ``nvcc`` compiles ``ssd_keras_torch/csrc/*.cu`` (the NMS kernel, the JPEG
-colour kernel and the uint8 linear resize; plain C entry points, no PyTorch
+colour kernel, the uint8 linear resize and the convolutions' epilogue;
+plain C entry points, no PyTorch
 headers, so a build takes seconds) for Hopper (``sm_90a``), one nvcc a
 source, all started together,
 then links them into ``ssd_keras_torch/_build/``, named by a hash of the
@@ -149,6 +150,9 @@ def load_library() -> ctypes.CDLL:
     lib.ssd_jpeg_ycc_to_rgb.restype = ctypes.c_int
     lib.ssd_resize_linear_u8.argtypes = [p, p, i, i, i, p, p]
     lib.ssd_resize_linear_u8.restype = ctypes.c_int
+    q = ctypes.c_longlong
+    lib.ssd_conv_epilogue.argtypes = [p, p, p, i, q, q, q, i, p]
+    lib.ssd_conv_epilogue.restype = ctypes.c_int
     return lib
 
 

@@ -1,0 +1,125 @@
+"""A convolution's epilogue, bias, residual and ReLU in one in-place pass:
+the CUDA kernel ``csrc/conv_epilogue.cu`` and its wrapper.
+
+Every convolution of the port's no-grad path (serving, evaluation) runs
+without its bias and then through here (``models/layers.py:
+conv2d_epilogue``), in place of PyTorch's broadcast bias ``add_``, its ReLU
+and a residual block's ``add_``. Not the port of a TPU kernel: XLA fuses
+these ops into the JAX package's convolutions.
+
+What bounds it on the card: the bytes, each element of the map read and
+written once and the residual read once (see the source's header).
+
+Dispatch is by the tensors' device and nothing else: CPU tensors go to the
+plain PyTorch version (``ops/conv_epilogue.py``); CUDA tensors launch the
+kernel or raise. ``launches`` counts the calls that launched it, and so
+does the program counter ``conv_epilogue.launches``
+(``utils.profiling.count``). Under CUDA-graph capture (the predictor's
+per-shape graphs) a call counts in ``captured`` instead; whoever replays
+the graph counts its calls with ``replayed``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from ssd_keras_torch.kernels.build import load_library
+from ssd_keras_torch.ops import conv_epilogue as plain
+from ssd_keras_torch.utils.profiling import count
+
+__all__ = ["COUNTER", "captured", "conv_epilogue", "launches", "replayed"]
+
+COUNTER = "conv_epilogue.launches"
+# Incremented once per call that launches the kernel (never for the CPU
+# path), and by ``replayed`` for each call a replayed CUDA graph holds.
+launches = 0
+# Calls recorded into CUDA graphs under capture (they launch at replay).
+captured = 0
+
+# The C entry's dtype codes (csrc/conv_epilogue.cu:Dtype).
+_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+
+
+def _inner(y: torch.Tensor) -> int:
+    """Elements of one channel's plane in ``y``'s memory: 1 where a pixel's
+    channels lie next to each other (channels_last, or no plane at all),
+    else the plane of a contiguous NCHW map. Raises on another layout."""
+    if y.is_contiguous():
+        return 1 if y.shape[1] == 1 else math.prod(y.shape[2:])
+    if y.dim() == 4 and y.is_contiguous(memory_format=torch.channels_last):
+        return 1
+    raise ValueError(f"y must be contiguous or channels_last, got strides {y.stride()} for "
+                     f"shape {tuple(y.shape)}")
+
+
+def _check(y: torch.Tensor, bias: torch.Tensor, residual: Optional[torch.Tensor]) -> int:
+    """Raises unless the kernel takes these tensors; returns ``_inner(y)``."""
+    if y.dtype not in _DTYPES:
+        raise TypeError(f"y must be float32, float16 or bfloat16, got {y.dtype}")
+    if y.dim() < 2:
+        raise ValueError(f"y must be (N, C, ...), got shape {tuple(y.shape)}")
+    if bias.dtype != y.dtype or bias.shape != y.shape[1:2] or not bias.is_contiguous():
+        raise ValueError(f"bias must be a contiguous ({y.shape[1]},) {y.dtype} tensor, got "
+                         f"{tuple(bias.shape)} {bias.dtype}")
+    if bias.device != y.device:
+        raise ValueError(f"bias on {bias.device} but y on {y.device}")
+    if residual is not None:
+        if residual.dtype != y.dtype or residual.shape != y.shape:
+            raise ValueError(f"residual must be {tuple(y.shape)} {y.dtype}, got "
+                             f"{tuple(residual.shape)} {residual.dtype}")
+        if residual.device != y.device:
+            raise ValueError(f"residual on {residual.device} but y on {y.device}")
+        if any(a != b for a, b, n in zip(residual.stride(), y.stride(), y.shape) if n > 1):
+            raise ValueError(f"residual's strides {residual.stride()} differ from y's "
+                             f"{y.stride()}")
+    return _inner(y)
+
+
+def replayed(calls: int) -> None:
+    """Count ``calls`` launches of the kernel: a CUDA graph holding that many
+    calls of the wrapper was replayed."""
+    global launches
+    launches += calls
+    count(COUNTER, calls)
+
+
+def conv_epilogue(y: torch.Tensor, bias: torch.Tensor, residual: Optional[torch.Tensor] = None,
+                  relu: bool = False) -> torch.Tensor:
+    """``y <- relu?(y + bias[c] + residual?)`` in place, rounded to ``y``'s
+    dtype as PyTorch's ``add_``, ``add_`` and ``relu_`` round; returns
+    ``y``. ``y``: an (N, C, ...) float32, float16 or bfloat16 map,
+    channels_last or contiguous; ``bias``: (C,) of its dtype; ``residual``:
+    ``y``'s shape, dtype and strides. On the card one kernel launch on the
+    current stream."""
+    global launches, captured
+    inner = _check(y, bias, residual)
+    if y.device.type == "cpu":
+        return plain.conv_epilogue(y, bias, residual, relu)
+    if y.device.type != "cuda":
+        raise ValueError(f"unsupported device {y.device}")
+    if y.numel() == 0:
+        return y
+    index = y.device.index
+    args = (y.data_ptr(), bias.data_ptr(), None if residual is None else residual.data_ptr(),
+            _DTYPES[y.dtype], y.numel(), y.shape[1], inner, int(relu),
+            torch._C._cuda_getCurrentRawStream(index))
+    fn = load_library().ssd_conv_epilogue
+    # The raw calls behind torch.cuda.current_device and
+    # is_current_stream_capturing: every convolution of an eager forward
+    # comes here, so the host's few microseconds count.
+    if index == torch._C._cuda_getDevice():
+        status = fn(*args)
+    else:
+        with torch.cuda.device(index):
+            status = fn(*args)
+    if status != 0:
+        raise RuntimeError(f"ssd_conv_epilogue launch failed: CUDA error {status}")
+    if torch._C._cuda_isCurrentStreamCapturing():
+        captured += 1
+    else:
+        launches += 1
+        count(COUNTER)
+    return y

@@ -16,12 +16,12 @@ import math
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ssd_keras_torch import decoder as decoder_mod
 from ssd_keras_torch.config import SSDConfig
-from ssd_keras_torch.models.layers import fuse_head_params, fused_prediction_heads
+from ssd_keras_torch.models.layers import (conv2d_epilogue, fuse_head_params,
+                                           fused_prediction_heads)
 
 __all__ = [
     "SSDModule",
@@ -96,14 +96,17 @@ class SSDModule(nn.Module):
         self._cast_cache[key] = (tuple(params), stamp, out)
         return out
 
-    def conv(self, x: torch.Tensor, name: str) -> torch.Tensor:
+    def conv(self, x: torch.Tensor, name: str, relu: bool = False,
+             residual: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The named ``nn.Conv2d`` (a dotted path for a nested one) on ``x``,
         its f32 weight and bias cast to ``x``'s dtype at use (flax's
-        ``.astype(dtype)``)."""
+        ``.astype(dtype)``), then ``residual`` added and the ReLU, if asked
+        (``layers.conv2d_epilogue``)."""
         m = self.get_submodule(name)
         weight, bias = self.cast_params(
             (name, x.dtype), (m.weight, m.bias), lambda w, b: (w.to(x.dtype), b.to(x.dtype)))
-        return F.conv2d(x, weight, bias, m.stride, m.padding, m.dilation)
+        return conv2d_epilogue(x, weight, bias, m.stride, m.padding, m.dilation, relu=relu,
+                               residual=residual)
 
     def heads(self, feat: torch.Tensor, conf_name: str, loc_name: str):
         """The named conf and loc heads on ``feat`` as one convolution

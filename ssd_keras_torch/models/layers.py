@@ -19,10 +19,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ssd_keras_torch.kernels import conv_epilogue as epilogue_kernel
 from ssd_keras_torch.ops.anchors import anchor_grid_for_layer
 
 __all__ = ["BatchNorm", "batch_statistics_over", "L2Normalization", "AnchorBoxes",
-           "preprocess_input", "fuse_head_params", "fused_prediction_heads"]
+           "preprocess_input", "conv2d_epilogue", "fuse_head_params", "fused_prediction_heads"]
 
 # The process group over whose ranks BatchNorm takes its batch statistics,
 # set only inside ``batch_statistics_over``.
@@ -203,6 +204,32 @@ def preprocess_input(
     return x
 
 
+def conv2d_epilogue(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+    stride: Union[int, Tuple[int, int]] = 1, padding: Union[int, Tuple[int, int]] = 0,
+    dilation: Union[int, Tuple[int, int]] = 1, relu: bool = False,
+    residual: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``relu?(conv2d(x, weight, bias) + residual?)``: the one place the
+    models run a convolution with a bias.
+
+    While autograd records (training), PyTorch's own ops: the convolution
+    with its bias, then the residual's add, then the ReLU. While it does
+    not (``no_grad``, ``inference_mode``: serving, evaluation), the
+    convolution without its bias, then one in-place pass of the epilogue
+    kernel over its output (``kernels/conv_epilogue.py``; its plain version
+    on the CPU), which rounds as those ops round. The kernel has no
+    backward.
+    """
+    if torch.is_grad_enabled():
+        y = F.conv2d(x, weight, bias, stride, padding, dilation)
+        if residual is not None:
+            y = y + residual
+        return F.relu(y) if relu else y
+    y = F.conv2d(x, weight, None, stride, padding, dilation)
+    return epilogue_kernel.conv_epilogue(y, bias, residual, relu)
+
+
 def fuse_head_params(conf_weight: torch.Tensor, loc_weight: torch.Tensor,
                      conf_bias: torch.Tensor, loc_bias: torch.Tensor,
                      dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -227,5 +254,5 @@ def fused_prediction_heads(
     both permuted to NHWC, the order the prediction tensor's boxes follow
     (``models/common.py``).
     """
-    out = F.conv2d(feat, weight, bias, stride, padding).permute(0, 2, 3, 1)
+    out = conv2d_epilogue(feat, weight, bias, stride, padding).permute(0, 2, 3, 1)
     return out[..., :n_conf], out[..., n_conf:]

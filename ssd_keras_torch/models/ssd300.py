@@ -123,7 +123,7 @@ class SSD300(SSDModule):
 
     def _convs(self, x: torch.Tensor, names) -> torch.Tensor:
         for name in names:
-            x = F.relu(self.conv(x, name))
+            x = self.conv(x, name, relu=True)
         return x
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

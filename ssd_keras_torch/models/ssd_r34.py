@@ -53,7 +53,7 @@ from ssd_keras_torch.models.common import (
     init_weights,
     valid_size,
 )
-from ssd_keras_torch.models.layers import BatchNorm, preprocess_input
+from ssd_keras_torch.models.layers import BatchNorm, conv2d_epilogue, preprocess_input
 from ssd_keras_torch.optimize import fold_batchnorm
 from ssd_keras_torch.utils.profiling import count, span
 
@@ -195,27 +195,34 @@ class SSDR34(SSDModule):
         ).to(self.compute_dtype).permute(0, 3, 1, 2)
         folded = self._folded(x.dtype) if self.fold_bn else None
 
-        def conv_bn(t, conv, bn):
+        def conv_bn(t, conv, bn, relu=False, residual=None):
+            """The conv and its BatchNorm, then ``residual`` added and the
+            ReLU, if asked: folded, one ``conv2d_epilogue``."""
             m = self.get_submodule(conv)
             if folded is not None:
                 weight, bias = folded[conv]
-                return F.conv2d(t, weight, bias, m.stride, m.padding)
+                return conv2d_epilogue(t, weight, bias, m.stride, m.padding, relu=relu,
+                                       residual=residual)
             weight = self.cast_params((conv, t.dtype), (m.weight,), lambda w: (w.to(t.dtype),))[0]
-            return self.get_submodule(bn)(F.conv2d(t, weight, None, m.stride, m.padding))
+            y = self.get_submodule(bn)(F.conv2d(t, weight, None, m.stride, m.padding))
+            if residual is not None:
+                y = y.add_(residual)
+            return F.relu_(y) if relu else y
 
-        x = F.max_pool2d(F.relu_(conv_bn(x, "conv1", "bn1")), 3, 2, 1)
+        x = F.max_pool2d(conv_bn(x, "conv1", "bn1", relu=True), 3, 2, 1)
         for i, (blocks, _, _) in enumerate(_LAYERS, start=1):
             for j in range(blocks):
                 p = f"layer{i}.{j}"
-                y = F.relu_(conv_bn(x, f"{p}.conv1", f"{p}.bn1"))
-                y = conv_bn(y, f"{p}.conv2", f"{p}.bn2")
+                y = conv_bn(x, f"{p}.conv1", f"{p}.bn1", relu=True)
+                # The downsample first, so that conv2's epilogue takes the
+                # identity as its residual.
                 if self.get_submodule(p).downsample is not None:
                     x = conv_bn(x, f"{p}.downsample.0", f"{p}.downsample.1")
-                x = F.relu_(y.add_(x))
+                x = conv_bn(y, f"{p}.conv2", f"{p}.bn2", relu=True, residual=x)
         sources = [x]
         for i in range(len(_EXTRAS)):
-            x = F.relu_(self.conv(x, f"additional_blocks.{i}.0"))
-            x = F.relu_(self.conv(x, f"additional_blocks.{i}.2"))
+            x = self.conv(x, f"additional_blocks.{i}.0", relu=True)
+            x = self.conv(x, f"additional_blocks.{i}.2", relu=True)
             sources.append(x)
         conf_maps, loc_maps = [], []
         for i, feat in enumerate(sources):

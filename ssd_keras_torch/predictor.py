@@ -26,7 +26,8 @@ the host stages ``predict.prepare``, ``predict.weights_check``,
 (``utils.profiling``); the counters ``predict.requests``,
 ``predict.images``, ``predict.slots`` (chunks times the batch size),
 ``predict.graph_captures`` and ``predict.graph_drops`` count its work, and
-each graph replay adds its NMS lanes to the decoder's ``decode.lanes``.
+each graph replay adds its NMS lanes to the decoder's ``decode.lanes`` and
+its convolutions' epilogues to ``conv_epilogue.launches``.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from torch import nn
 
 from ssd_keras_torch import decoder
 from ssd_keras_torch.data.photometric import ConvertTo3Channels
+from ssd_keras_torch.kernels import conv_epilogue as epilogue_kernel
 from ssd_keras_torch.kernels import nms as nms_kernel
 from ssd_keras_torch.utils.profiling import count, span
 
@@ -152,12 +154,14 @@ class _ShapeGraph:
                 predictor._run(self.static_in)
             self.graph = torch.cuda.CUDAGraph()
             before, lanes_before = nms_kernel.captured, decoder.captured_lanes
+            epilogues_before = epilogue_kernel.captured
             with torch.cuda.graph(self.graph, stream=stream):
                 self.static_out = predictor._run(self.static_in)
-            # The NMS wrapper calls and lanes the graph holds; each replay
-            # launches them.
+            # The NMS wrapper calls and lanes and the convolutions' epilogues
+            # the graph holds; each replay launches them.
             self.nms_calls = nms_kernel.captured - before
             self.nms_lanes = decoder.captured_lanes - lanes_before
+            self.epilogue_calls = epilogue_kernel.captured - epilogues_before
         torch.cuda.current_stream(device).wait_stream(stream)
         self.keep_alive = predictor._graph_inputs()
 
@@ -170,6 +174,7 @@ class _ShapeGraph:
             self.graph.replay()
             out = self.static_out.clone()
         nms_kernel.replayed(self.nms_calls)
+        epilogue_kernel.replayed(self.epilogue_calls)
         count("decode.lanes", self.nms_lanes)
         return out
 

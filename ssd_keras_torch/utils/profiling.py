@@ -172,7 +172,8 @@ def count(name: str, n: int = 1) -> None:
 
 
 def counters() -> Dict[str, int]:
-    """A snapshot of every counter: those of :func:`count`, and the kernels'
+    """A snapshot of every counter: those of :func:`count` (among them the
+    epilogue kernel's ``conv_epilogue.launches``), and the kernels'
     module counters under ``nms.launches``, ``nms.captured``,
     ``jpeg_color.launches``, ``resize_linear.launches`` and
     ``nvjpeg.batches`` (``nvjpegDecodeBatched`` calls), read from their

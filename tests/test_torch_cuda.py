@@ -15,7 +15,11 @@ kernel against PIL and the kernel's plain version, on nvJPEG's planes and
 on ``chip_smoke.JPEG_COLOR_CASES``' edge cases, errors with the file's
 index, calls from several threads, ``DataGenerator``'s batch path), and
 the resize kernel against its plain version and the evaluator's card path
-against the host chain (batches, results, back-to-back decodes).
+against the host chain (batches, results, back-to-back decodes), and the
+convolutions' epilogue kernel against its plain version and PyTorch's ops
+(``chip_smoke.EPILOGUE_CASES``), counted in the predictor's graphs (29 an
+SSD300 forward, 45 an SSD-ResNet34 one) and giving the detections of the
+grad-enabled forward.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither JAX nor the JAX package, so it also runs on a machine with
@@ -31,8 +35,9 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from chip_smoke import (JPEG_COLOR_CASES, EagerPredictor, StreamModel, noisy_oracle,
-                        random_lanes, seeded_state)
+from chip_smoke import (EPILOGUE_CASES, JPEG_COLOR_CASES, EagerPredictor, StreamModel,
+                        epilogue_inputs, library_epilogue, noisy_oracle, random_lanes,
+                        same_bits, seeded_state)
 from test_torch_resize import RESIZE_CASES
 from ssd_keras_torch import SSDConfig, SSDInputEncoder, SSDLoss, SSDPredictor, ssd_7, ssd_300
 from ssd_keras_torch import train as T
@@ -42,7 +47,7 @@ from ssd_keras_torch.data.streaming import StreamingDeviceInput
 from ssd_keras_torch.decoder import decode_detections_fast_fixed, decode_detections_fixed
 from ssd_keras_torch.encoder import pad_labels
 from ssd_keras_torch.kernels import nms as nms_kernel
-from ssd_keras_torch.models import ssd7_predictor_sizes, ssd300_predictor_sizes
+from ssd_keras_torch.models import BatchNorm, ssd7_predictor_sizes, ssd300_predictor_sizes
 from ssd_keras_torch.ops.nms import greedy_nms_mask, iou_suppression_mask, words_read
 from ssd_keras_torch.parallel import sharding as sh
 from ssd_keras_torch.parallel.dryrun import dryrun_multichip
@@ -968,3 +973,112 @@ def test_decode_packed_back_to_back_equals_one_at_a_time(cuda):
     assert jpeg.decode_packed([files["cmyk"], big[0]], cuda) is None
     assert jpeg.decode_packed(big[:2], cuda, accept=lambda h, w: w != 2000) is None
     assert jpeg.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The convolutions' epilogue kernel
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", sorted(EPILOGUE_CASES))
+def test_epilogue_kernel_equals_plain_and_pytorchs_ops(cuda, case):
+    """At SSD-ResNet34's and SSD300's b8 maps and the edge cases, NaN, +-0.0
+    and +-inf planted: the kernel, its plain version and PyTorch's add_ /
+    add_ / relu_ give the same bits, in place."""
+    from ssd_keras_torch.kernels import conv_epilogue as epilogue_kernel
+    from ssd_keras_torch.ops import conv_epilogue as plain_epilogue
+
+    relu = EPILOGUE_CASES[case][3]
+    y, bias, residual = epilogue_inputs(case, cuda)
+    ptr, before = y.data_ptr(), epilogue_kernel.launches
+    got = epilogue_kernel.conv_epilogue(y, bias, residual, relu)
+    assert got is y and y.data_ptr() == ptr and epilogue_kernel.launches == before + 1
+    plain = plain_epilogue.conv_epilogue(epilogue_inputs(case, cuda)[0], bias, residual, relu)
+    library = library_epilogue(epilogue_inputs(case, cuda)[0], bias, residual, relu)
+    assert same_bits(got, plain) and same_bits(got, library)
+
+
+def _graph_epilogues(model, frames, batch_size):
+    """Captures ``model``'s graphs through a predictor, then replays: the
+    epilogue calls each graph holds, and the kernel's launches and the
+    program counter over one more ``predict``."""
+    from ssd_keras_torch.kernels import conv_epilogue as epilogue_kernel
+
+    predictor = SSDPredictor(model, batch_size=batch_size)
+    captured = epilogue_kernel.captured
+    predictor.predict(frames)
+    calls = [run.epilogue_calls for run in predictor._compiled.values()]
+    assert epilogue_kernel.captured == captured + sum(calls)
+    before, counted = epilogue_kernel.launches, profiling.counters()[epilogue_kernel.COUNTER]
+    predictor.predict(frames)
+    chunks = -(-len(frames) // batch_size)
+    return (calls, epilogue_kernel.launches - before,
+            profiling.counters()[epilogue_kernel.COUNTER] - counted, chunks)
+
+
+def test_graphs_hold_and_count_the_epilogues_of_ssd300(cuda):
+    frames = [np.random.RandomState(i).randint(0, 256, (480, 640, 3), dtype=np.uint8)
+              for i in range(3)]
+    calls, launches, counted, chunks = _graph_epilogues(_served_model(cuda), frames, 2)
+    assert calls == [29] and launches == counted == 29 * chunks
+
+
+def test_graphs_hold_and_count_the_epilogues_of_ssd_r34(cuda):
+    from ssd_keras_torch.models import ssd_r34
+
+    model, _ = ssd_r34(mode="inference", compute_dtype=torch.bfloat16, device=cuda,
+                       generator=torch.Generator().manual_seed(0), img_height=400,
+                       img_width=400)
+    frames = [np.random.RandomState(i).randint(0, 256, (480, 640, 3), dtype=np.uint8)
+              for i in range(3)]
+    calls, launches, counted, chunks = _graph_epilogues(model, frames, 2)
+    assert calls == [45] and launches == counted == 45 * chunks
+
+
+def _unfused(model, monkeypatch):
+    """``model`` with its forward run while autograd records: PyTorch's own
+    bias add, residual add and ReLU after each convolution."""
+    forward = model.forward
+
+    def with_grad(x):
+        with torch.enable_grad():
+            return forward(x)
+
+    monkeypatch.setattr(model, "forward", with_grad, raising=False)
+    return model
+
+
+@pytest.mark.parametrize("arch", ["ssd300", "ssd_r34"])
+def test_predictions_equal_the_grad_enabled_forwards(cuda, arch, monkeypatch):
+    """Detections through the predictor's graphs (the epilogue kernel)
+    equal, bit for bit, the eager predictor's with the model's forward run
+    under autograd (PyTorch's ops after the same convolutions)."""
+    from ssd_keras_torch.kernels import conv_epilogue as epilogue_kernel
+    from ssd_keras_torch.models import ssd_r34
+
+    if arch == "ssd300":
+        model = _served_model(cuda)
+    else:
+        model, _ = ssd_r34(mode="inference", compute_dtype=torch.bfloat16, device=cuda,
+                           generator=torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            for i in range(6):
+                getattr(model, f"conf{i}").weight.mul_(0.125)
+                getattr(model, f"loc{i}").weight.mul_(0.0625)
+    with torch.no_grad():  # biases to add, folded ones too, as a trained model has
+        gen = torch.Generator().manual_seed(1)
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d) and m.bias is not None:
+                m.bias.copy_(torch.randn(m.bias.shape, generator=gen) * 0.05)
+            if isinstance(m, BatchNorm):
+                m.bias.copy_(torch.randn(m.bias.shape, generator=gen) * 0.1)
+                m.running_mean.copy_(torch.randn(m.bias.shape, generator=gen) * 0.1)
+    frames = [np.random.RandomState(i).randint(0, 256, (480, 640, 3), dtype=np.uint8)
+              for i in range(3)]
+    fused = SSDPredictor(model, batch_size=2).predict(frames)
+    before = epilogue_kernel.launches
+    unfused = EagerPredictor(_unfused(model, monkeypatch), batch_size=2).predict(frames)
+    assert epilogue_kernel.launches == before  # the grad-enabled forward launched none
+    assert sum(len(d) for d in fused) > 0
+    for dets, ref in zip(fused, unfused):
+        np.testing.assert_array_equal(dets, ref)

@@ -218,7 +218,8 @@ def test_wrapper_has_no_fallback_for_other_devices():
 
 def test_kernel_source_is_where_the_build_looks():
     assert (build.CSRC_DIR / "nms.cu").is_file()
-    assert [p.name for p in build._sources()] == ["jpeg_color.cu", "nms.cu", "resize_linear.cu"]
+    assert [p.name for p in build._sources()] == ["conv_epilogue.cu", "jpeg_color.cu", "nms.cu",
+                                                  "resize_linear.cu"]
     assert os.path.basename(build.BUILD_DIR) == "_build"
     # The nvJPEG decoder is a library of its own, outside the kernels' glob.
     assert build.NVJPEG_SOURCE.is_file() and build.NVJPEG_SOURCE.parent.name == "native"
