@@ -22,9 +22,10 @@ Phases, in order; the first failure raises and the script exits non-zero:
    card, from seeded weights: at f32 (TF32 off) against the same port on
    the CPU, at bf16 (finite, in-frame output), then 'inference_fast', then
    bf16 at batch 1. The
-   NMS launch count is reset before and read after; it must have moved. So
-   is the convolutions' epilogue count, which must read 29 a forward. The
-   path must not make the host wait for the device.
+   program's NMS launch counter (``utils.profiling.counters()``) is read
+   before and after; it must have moved. So is the convolutions' epilogue
+   counter, which must move by 29 a forward. The path must not make the
+   host wait for the device.
 5. Serving through ``SSDPredictor``'s per-shape CUDA graphs (the cast,
    resize, forward, decode and NMS kernel captured once a shape): (a) it
    answers 8 frames of 300x300, 5 of 480x640 and 1 frame, all uint8, the
@@ -231,7 +232,8 @@ Phases, in order; the first failure raises and the script exits non-zero:
    model at f32 with TF32 off, the bf16 output within ENTRY_BF16_REL_L2 of
    it on the class probabilities and the box offsets, the anchors equal.
    The path launches no NMS or colour kernel (the convolutions' epilogue,
-   phase 18, runs in its no-grad forward). Its line: eager and replay ms
+   phase 18, runs in its no-grad forward: the graph holds its 29 launches'
+   counts and a replay counts them). Its line: eager and replay ms
    (CUDA events, median of 5 x 20 calls), the eager call's device time, the
    graph pool's MB and the card.
 
@@ -270,6 +272,7 @@ import torch
 
 import torch.distributed as dist
 
+from perfbench.counts import roofline
 from ssd_keras_torch import (
     SSDConfig,
     SSDInputEncoder,
@@ -303,11 +306,11 @@ from ssd_keras_torch.kernels import jpeg_color as jpeg_color_kernel
 from ssd_keras_torch.kernels import nms as nms_kernel
 from ssd_keras_torch.models import ssd300_predictor_sizes
 from ssd_keras_torch.ops import jpeg_color
-from ssd_keras_torch.ops.nms import greedy_nms_mask, iou_suppression_mask, lane_bounds, words_read
+from ssd_keras_torch.ops.nms import greedy_nms_mask, iou_suppression_mask, words_read
 from ssd_keras_torch.parallel import sharding as sh
 from ssd_keras_torch.parallel.dryrun import dp_check_rank
 from ssd_keras_torch.parallel.launch import run_ranks
-from ssd_keras_torch.utils.profiling import summary, time_calls, time_cuda, time_device
+from ssd_keras_torch.utils.profiling import counters, summary, time_calls, time_cuda, time_device
 
 SEED = 0
 BATCH = 8
@@ -359,15 +362,12 @@ NMS_CASES = [(160, 400, "prefix", 0.0), (640, 400, "prefix", 0.0), (8, 400, "pre
              (16, 64, "random", 0.0), (16, 65, "prefix", 1.0), (2, 3000, "prefix", 0.0),
              (8, 400, "last", 0.0), (24, 400, "hard", 0.0), (160, 400, "sparse", 0.0)]
 NMS_ONES_CASES = {(160, 400, "random", 1.0), (24, 400, "hard", 0.0)}
-# The NMS kernel's bound (phase 6): the bytes the inputs need (the valid
-# rows' boxes and the valid flags) read and keep written once each at the
-# card's 3.35 TB/s, and ~16 f32 operations an IoU
-# pair (2 min, 2 max, 4 add/sub, 2 clamps, the product, the union's add and
-# sub, the division, 2 compares) at 67 TFLOP/s of f32 outside the tensor
-# cores (NVIDIA's H100 SXM data sheet).
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-OPS_PER_PAIR = 16
+# The card's peaks the kernels' bounds are taken against (NVIDIA's H100 SXM
+# data sheet): 3.35 TB/s of HBM and 67 TFLOP/s of f32 outside the tensor
+# cores. The NMS kernel's bound (phase 6) is the benchmark's
+# (``perfbench/counts/roofline.py:nms_bound``).
+HBM_BYTES_PER_S = roofline.HBM_BYTES_PER_S
+F32_OPS_PER_S = roofline.F32_FLOPS
 NMS_LIBRARY_NOTE = ("no single PyTorch call computes greedy NMS (torchvision.ops.nms is not "
                     "part of PyTorch, and the port uses no torchvision)")
 # Phase 8: the input pipeline at batch 32 with up to 32 boxes an image, a
@@ -617,6 +617,12 @@ EPILOGUE_LIBRARY_NOTE = ("library_ms: PyTorch's add_ of the (1, C, 1, 1) bias, a
                          "replaces")
 
 
+def program_count(name):
+    """The program counter ``name`` (``utils.profiling``), 0 before its
+    first count."""
+    return counters().get(name, 0)
+
+
 def log(msg):
     print(msg, flush=True)
 
@@ -780,19 +786,12 @@ def nms_shapes(device, serving, x):
 
 
 def nms_bound(valid, keep):
-    """What these inputs need of the kernel: the kept rows, the IoU pairs
-    (each kept row i against the rows after it below its lane's bound),
-    the bytes (the valid rows' boxes and every valid flag read, keep
-    written, once each; no row past a lane's last valid row is needed) and
-    the least time the card could take for them."""
-    k = valid.shape[1]
-    after = lane_bounds(valid)[:, None] - 1 - torch.arange(k, device=valid.device)
-    pairs = int(torch.where(keep, after, 0).sum())
-    nbytes = 16 * int(valid.sum()) + valid.numel() + keep.numel()
-    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-    ops_ms = 1e3 * pairs * OPS_PER_PAIR / F32_OPS_PER_S
-    return dict(kept=int(keep.sum()), pairs=pairs, bytes=nbytes, bound_ms=max(bytes_ms, ops_ms),
-                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+    """What these inputs need of the kernel (``perfbench/counts/roofline.py:
+    nms_bound``: the IoU pairs, the bytes, the bound), with the kept rows
+    and the least time the card could take for them in milliseconds."""
+    cost = roofline.nms_bound(valid.cpu().numpy(), keep.cpu().numpy())
+    return dict(kept=int(keep.sum()), pairs=cost["pairs"], bytes=cost["bytes"],
+                bound_ms=1e3 * cost["seconds"], bound_by=cost["bound_by"])
 
 
 def nms_timings(shapes, card):
@@ -951,8 +950,8 @@ def serving_phase(bf16, state, device, card):
                                            ("5 x 480x640", 5, (480, 640)),
                                            ("1 x 300x300", 1, (300, 300))])
     # (a) The requests, the first of each shape capturing its graph.
-    nms_kernel.launches = 0
-    epilogue_kernel.launches = 0
+    nms0 = program_count("nms.launches")
+    epilogues0 = program_count("conv_epilogue.launches")
     answers = []
     for name, images in requests:
         new_shape = (*images[0].shape[:2], "|u1") not in predictor._compiled
@@ -969,8 +968,8 @@ def serving_phase(bf16, state, device, card):
         log(f"request {name}: answered in {ms:.1f} ms (host clock, "
             f"{'capturing its shape' if new_shape else 'replayed'}), "
             f"{sum(len(d) for d in out)} detections")
-    serve_launches = nms_kernel.launches
-    epilogues = dict(serving_requests=epilogue_kernel.launches)
+    serve_launches = program_count("nms.launches") - nms0
+    epilogues = dict(serving_requests=program_count("conv_epilogue.launches") - epilogues0)
     if serve_launches < len(requests):
         raise AssertionError(f"serving launched the NMS kernel {serve_launches} times")
     if list(predictor._compiled) != [(480, 640, "|u1"), (300, 300, "|u1")]:
@@ -984,21 +983,23 @@ def serving_phase(bf16, state, device, card):
 
     # (c) Replays: NMS launches counted, no host sync outside the read.
     launches = {}
-    nms_kernel.launches = 0
-    epilogue_kernel.launches = 0
+    nms0 = program_count("nms.launches")
+    epilogues0 = program_count("conv_epilogue.launches")
     with sync_checked_outside_the_predictor_read():
         for (name, images), out in zip(requests, answers):
             same_answers(f"request {name}, replayed", predictor.predict(images), out)
-    launches["serving_graph_replays"] = nms_kernel.launches
-    epilogues["serving_graph_replays"] = epilogue_kernel.launches
-    if nms_kernel.launches != len(requests):
-        raise AssertionError(f"{len(requests)} replays counted {nms_kernel.launches} NMS launches")
-    held = {hw: graph.epilogue_calls for hw, graph in predictor._compiled.items()}
+    launches["serving_graph_replays"] = program_count("nms.launches") - nms0
+    epilogues["serving_graph_replays"] = program_count("conv_epilogue.launches") - epilogues0
+    if launches["serving_graph_replays"] != len(requests):
+        raise AssertionError(f"{len(requests)} replays counted "
+                             f"{launches['serving_graph_replays']} NMS launches")
+    held = {hw: graph.counts.get("conv_epilogue.launches")
+            for hw, graph in predictor._compiled.items()}
     expected = len(requests) * EPILOGUES_A_FORWARD["ssd300"]
     if (set(held.values()) != {EPILOGUES_A_FORWARD["ssd300"]}
-            or epilogue_kernel.launches != expected):
+            or epilogues["serving_graph_replays"] != expected):
         raise AssertionError(f"graphs hold {held} epilogues; {len(requests)} replays counted "
-                             f"{epilogue_kernel.launches}, expected {expected}")
+                             f"{epilogues['serving_graph_replays']}, expected {expected}")
     log("graph replays: no host synchronisation outside the predictor's read "
         "(torch.cuda sync debug mode 'error'); one NMS launch and each graph's "
         f"{EPILOGUES_A_FORWARD['ssd300']} epilogue launches counted a replay")
@@ -1009,7 +1010,7 @@ def serving_phase(bf16, state, device, card):
     small = SSDPredictor(model, batch_size=BATCH, max_compiled_shapes=2)
     reference = EagerPredictor(model, batch_size=BATCH)
     third = serving_requests(SEED + 3, [("2 x 360x480", 2, (360, 480))])[0]
-    nms_kernel.launches = 0
+    nms0 = program_count("nms.launches")
     for name, images in [requests[0], requests[1], third, requests[0]]:
         same_answers(f"request {name}, two graphs at most", small.predict(images),
                      reference.predict(images))
@@ -1021,7 +1022,7 @@ def serving_phase(bf16, state, device, card):
     same_answers("after a reload", after, reference.predict(third[1]))
     if all(np.array_equal(a, b) for a, b in zip(after, before)):
         raise AssertionError("the reloaded weights gave the old answers")
-    launches["serving_graph_evict_reload"] = nms_kernel.launches
+    launches["serving_graph_evict_reload"] = program_count("nms.launches") - nms0
     log("max_compiled_shapes=2: a third shape evicted the least recent graph, its return "
         "captured it again, and a reload of other weights dropped the graphs; answers equal "
         "the eager path's")
@@ -1174,7 +1175,7 @@ def train_phase(state, device, card):
             i = (i + 1) % (TRAIN_IMAGES // b)
 
     trainer = bf16_trainer(state, device)
-    launches_before = nms_kernel.launches
+    launches_before = program_count("nms.launches")
     with tempfile.TemporaryDirectory() as tmp:
         csv_path = os.path.join(tmp, "log.csv")
         callbacks = [T.CSVLogger(csv_path), T.TerminateOnNaN(),
@@ -1227,7 +1228,7 @@ def train_phase(state, device, card):
     server = model_for(trained, "inference", torch.bfloat16, device)
     with torch.no_grad():
         det = server(torch.from_numpy(val_images).to(device)).cpu().numpy()
-    serve_launches = nms_kernel.launches - launches_before
+    serve_launches = program_count("nms.launches") - launches_before
     rows = det[det[..., 1] > 0]
     check_in_frame("trained SSD300 on SynthVOC val", rows, 300, 300, 20)
     log(f"trained weights served: {len(rows)} detections in {BATCH} val images, "
@@ -1407,11 +1408,11 @@ def dp_phase(state, device, card, step_ms_phase7):
         # Each rank decodes its rows in 'inference' mode; the detections gathered.
         server = model_for(state, "inference", torch.float32, device)
         x8 = torch.from_numpy(images[:DP_BATCH]).to(device)
-        nms_kernel.launches = 0
+        nms0 = program_count("nms.launches")
         with torch.no_grad():
             dets = sh.global_batch_from_local(server(x8), mesh)
         torch.cuda.synchronize()
-        nccl_launches = nms_kernel.launches
+        nccl_launches = program_count("nms.launches") - nms0
         if dets.shape != (DP_BATCH, 200, 6) or nccl_launches < 1:
             raise AssertionError(f"DP decode (NCCL): shape {tuple(dets.shape)}, "
                                  f"{nccl_launches} NMS launches")
@@ -1640,10 +1641,10 @@ def ssd512_part(device, card):
     bf16 = model_for(state, "inference", torch.bfloat16, device, "ssd512")
     train = model_for(state, "training", torch.float32, device, "ssd512")
 
-    nms_kernel.launches = 0
+    nms0 = program_count("nms.launches")
     dets = {"f32": f32(x), "bf16": bf16(x)}
     torch.cuda.synchronize()
-    launches = nms_kernel.launches
+    launches = program_count("nms.launches") - nms0
     for name, det in dets.items():
         det = det.cpu().numpy()
         rows = det[det[..., 1] > 0]
@@ -1699,10 +1700,10 @@ def evaluator_part(device, card):
     n_batches = EVAL_IMAGES // EVAL_BATCH
 
     # The oracle: an exact detector, decoded on the card.
-    nms_kernel.launches = 0
+    nms0 = program_count("nms.launches")
     oracle_map = evaluate(Evaluator(StreamModel(y_true), 20, generator(), "training",
                                     device=device), 300)
-    oracle_launches = nms_kernel.launches
+    oracle_launches = program_count("nms.launches") - nms0
     log(f"evaluator, oracle (the encoder's targets), device decode: mAP {oracle_map!r} "
         f"(gate >= {ORACLE_MAP_MIN}), NMS launches {oracle_launches} for {n_batches} batches")
     if not oracle_map >= ORACLE_MAP_MIN or oracle_launches != n_batches:
@@ -1740,9 +1741,9 @@ def evaluator_part(device, card):
     lines, launches = [], {}
     for name, (model, mode, size) in models.items():
         ev = Evaluator(model, 20, generator(), mode, device=device)
-        nms_kernel.launches = 0
+        nms0 = program_count("nms.launches")
         m = ev(size, size, EVAL_BATCH, verbose=False)
-        launches[name] = nms_kernel.launches
+        launches[name] = program_count("nms.launches") - nms0
         log(f"evaluator, {name} '{mode}' bf16 (seeded weights): mAP {m!r}, NMS launches "
             f"{launches[name]}")
         if not (np.isfinite(m) and 0.0 <= m <= 1.0) or launches[name] != n_batches:
@@ -1782,12 +1783,12 @@ def coco_part(device, card):
                            "bbox": [float(x0), float(y0), float(x1 - x0), float(y1 - y0)]}
                           for i, lab in enumerate(labels)
                           for k, (c, x0, y0, x1, y1) in enumerate(lab)]}
-    nms_kernel.launches = 0
+    nms0 = program_count("nms.launches")
     with tempfile.TemporaryDirectory() as tmp, nms_inputs_recorded(keep=False) as lanes:
         results = predict_all_to_json(os.path.join(tmp, "results.json"), model, 300, 300,
                                       classes_to_cats, gen, batch_size=EVAL_BATCH,
                                       model_mode="inference", verbose=False, device=device)
-    launches = nms_kernel.launches
+    launches = program_count("nms.launches") - nms0
     stats = COCOEvalBBox(gt, results).evaluate()
     log(f"COCO: {len(results)} detections of {COCO_IMAGES} images, NMS launches {launches} on "
         f"lanes {lanes}; COCOEvalBBox {json.dumps(stats)}")
@@ -2101,7 +2102,7 @@ def host_chain_phase(state, device, card):
 
     # Training through Trainer.fit_generator from the host chain.
     trainer = bf16_trainer(state, device)
-    launches_before = nms_kernel.launches
+    launches_before = program_count("nms.launches")
     t0 = time.perf_counter()
     history = trainer.fit_generator(checked(host_chain(SEED)),
                                     steps_per_epoch=HOST_STEPS_PER_EPOCH, epochs=HOST_EPOCHS,
@@ -2180,7 +2181,7 @@ def host_chain_phase(state, device, card):
         f"{STREAM_BATCHES} batches of {AUG_BATCH}, losses {[round(v, 4) for v in stream_losses]}")
     if not all(np.isfinite(stream_losses)):
         raise AssertionError(f"streamed host batches gave losses {stream_losses}")
-    host_launches = nms_kernel.launches - launches_before
+    host_launches = program_count("nms.launches") - launches_before
     if host_launches:
         raise AssertionError("host-chain training launched the NMS kernel")
 
@@ -2225,12 +2226,12 @@ def workflows_phase(card):
     lines, launches = [], {}
     with tempfile.TemporaryDirectory() as tmp, torch.enable_grad():
         # (a) The overfit smoke at its defaults, in this process.
-        nms_kernel.launches = 0
+        nms0 = program_count("nms.launches")
         t0 = time.perf_counter()
         smoke = synthetic_smoke_ssd300.main([])
         torch.cuda.synchronize()
         smoke_s = time.perf_counter() - t0
-        launches["workflow_smoke"] = nms_kernel.launches
+        launches["workflow_smoke"] = program_count("nms.launches") - nms0
         if not (smoke["last_loss"] < 0.5 * smoke["first_loss"]
                 and smoke["recall"] >= SMOKE_RECALL_MIN and launches["workflow_smoke"]):
             raise AssertionError(f"synthetic_smoke_ssd300: {smoke}, recall at least "
@@ -2269,13 +2270,13 @@ def workflows_phase(card):
                                 for r in rows], timer="host clock", card=card))
 
         # (c) The SynthVOC benchmark's SSD7 recipe, cut to 2000 steps.
-        nms_kernel.launches = 0
+        nms0 = program_count("nms.launches")
         t0 = time.perf_counter()
         bench = synthvoc_benchmark.main(BENCH_ARGS + ["--out", os.path.join(tmp, "bench"),
                                                       "--ckpt", os.path.join(tmp, "ckpt")])
         torch.cuda.synchronize()
         bench_s = time.perf_counter() - t0
-        launches["workflow_benchmark"] = nms_kernel.launches
+        launches["workflow_benchmark"] = program_count("nms.launches") - nms0
         lines.append(dict(metric="workflow_synthvoc_benchmark_ssd7", args=BENCH_ARGS,
                           map_sample=bench["map_sample"], map_integrate=bench["map_integrate"],
                           map_min=BENCH_MAP_MIN, img_per_s=bench["img_per_s"],
@@ -2300,11 +2301,11 @@ def ab_workflows_phase(card):
     lines, launches = [], {}
     with tempfile.TemporaryDirectory() as tmp, torch.enable_grad():
         # (a) bf16 against f32 from one init on one batch sequence.
-        nms_kernel.launches = 0
+        nms0 = program_count("nms.launches")
         t0 = time.perf_counter()
         bf = bf16_vs_f32_ssd300.main(BF16_AB_ARGS + ["--out", os.path.join(tmp, "bf16.md")])
         torch.cuda.synchronize()
-        launches["workflow_bf16_vs_f32"] = nms_kernel.launches
+        launches["workflow_bf16_vs_f32"] = program_count("nms.launches") - nms0
         rec, paired = bf["record"], bf["paired"]
         step0 = paired[0]
         losses = [v for row in paired for v in row[1:3]]
@@ -2317,11 +2318,11 @@ def ab_workflows_phase(card):
                                  f"{launches['workflow_bf16_vs_f32']} NMS launches")
 
         # (b) The host chain against the device chain, from one init.
-        nms_kernel.launches = 0
+        nms0 = program_count("nms.launches")
         t0 = time.perf_counter()
         ab = aug_chain_ab.main(AUG_AB_ARGS + ["--out", os.path.join(tmp, "aug")])
         torch.cuda.synchronize()
-        launches["workflow_aug_chain_ab"] = nms_kernel.launches
+        launches["workflow_aug_chain_ab"] = program_count("nms.launches") - nms0
         arms = {r["arm"]: r for r in ab["results"]}
         lines.append(dict(metric="workflow_aug_chain_ab", args=AUG_AB_ARGS,
                           **{f"{arm}_map": [r["final_mAP_sample"], r["final_mAP_integrate"]]
@@ -2343,11 +2344,11 @@ def ab_workflows_phase(card):
         trained = synthvoc_benchmark.main(AGREEMENT_TRAIN_ARGS + [
             "--out", os.path.join(tmp, "bench300"), "--ckpt", ckpt])
         train_s = time.perf_counter() - t0
-        nms_kernel.launches = 0
+        nms0 = program_count("nms.launches")
         agree = evaluator_decode_agreement.main(AGREEMENT_ARGS + [
             "--ckpt", ckpt, "--out", os.path.join(tmp, "agreement.md")])
         torch.cuda.synchronize()
-        launches["workflow_decode_agreement"] = nms_kernel.launches
+        launches["workflow_decode_agreement"] = program_count("nms.launches") - nms0
         lines.append(dict(metric="workflow_evaluator_decode_agreement", args=AGREEMENT_ARGS,
                           trained=dict(args=AGREEMENT_TRAIN_ARGS, map_sample=trained["map_sample"],
                                        seconds=train_s),
@@ -2371,11 +2372,11 @@ def speed_workflows_phase(card):
     lines, launches = [], {}
     with tempfile.TemporaryDirectory() as tmp:
         # (a) The trunk and the decoder's own stages; SSD7's launch overhead.
-        nms_kernel.launches = 0
+        nms0 = program_count("nms.launches")
         t0 = time.perf_counter()
         prof = profile_breakdown.main(["--out", os.path.join(tmp, "profile.md")])
         torch.cuda.synchronize()
-        launches["speed_profile_breakdown"] = nms_kernel.launches
+        launches["speed_profile_breakdown"] = program_count("nms.launches") - nms0
         stage_ms = [row[k] for row in prof["ssd300"] for k in profile_breakdown.STAGE_KEYS]
         lines.append(dict(metric="speed_profile_breakdown", ssd300=prof["ssd300"],
                           ssd7=prof["ssd7"], seconds=time.perf_counter() - t0,
@@ -2419,11 +2420,11 @@ def speed_workflows_phase(card):
             raise AssertionError(f"streaming_bench: {stream}")
 
         # (d) compact_pool at COCO's and VOC's class counts.
-        nms_kernel.launches = 0
+        nms0 = program_count("nms.launches")
         t0 = time.perf_counter()
         rows = coco_decode_bench.main(["--out", os.path.join(tmp, "coco.md")])
         torch.cuda.synchronize()
-        launches["speed_coco_decode"] = nms_kernel.launches
+        launches["speed_coco_decode"] = program_count("nms.launches") - nms0
         lines.append(dict(metric="speed_coco_decode", rows=rows,
                           seconds=time.perf_counter() - t0, timer="CUDA events", card=card))
         off = next(r for r in rows if r["model"] == "coco81" and r["compact_pool"] == 0)
@@ -2720,12 +2721,12 @@ def resize_part(device, card):
             if path == "host":
                 gen._generate_on_card = lambda resize, gen=gen, **kw: gen.generate(**kw)
             ev = Evaluator(model, 20, gen, model_mode="inference", device=device)
-            resized = profiling.counters().get("data.device_resized", 0)
-            resize_kernel.launches = 0
+            resized = program_count("data.device_resized")
+            resize0 = program_count("resize_linear.launches")
             mean_ap = ev(*RESIZE_OUT, len(RESIZE_SHAPES), verbose=False)
             out[path] = dict(mean_ap=mean_ap, results=ev.prediction_results,
-                             launches=resize_kernel.launches,
-                             resized=profiling.counters().get("data.device_resized", 0) - resized)
+                             launches=program_count("resize_linear.launches") - resize0,
+                             resized=program_count("data.device_resized") - resized)
     card_run, host_run = out["card"], out["host"]
     if (card_run["launches"], card_run["resized"]) != (RESIZE_BATCHES, n) or host_run["launches"]:
         raise AssertionError(f"the evaluator's card path: {card_run['launches']} resize launches "
@@ -2764,9 +2765,10 @@ def jpeg_phase(card):
     # (a) The fixtures as one batch, each held to PIL; CMYK through PIL.
     files = jpeg_fixtures()
     names = list(files)
-    launched = (jpeg.launches, jpeg_color_kernel.launches)
+    launched = (program_count("nvjpeg.batches"), program_count("jpeg_color.launches"))
     decoded = jpeg.decode_jpeg_batch([files[n] for n in names])
-    if (jpeg.launches - launched[0], jpeg_color_kernel.launches - launched[1]) != (1, 1):
+    if (program_count("nvjpeg.batches") - launched[0],
+            program_count("jpeg_color.launches") - launched[1]) != (1, 1):
         raise AssertionError("the fixtures' batch did not take one nvJPEG call and one "
                              "colour kernel launch")
     per_file = {}
@@ -2866,9 +2868,10 @@ def jpeg_phase(card):
             with open(os.path.join(folder, name), "wb") as f:
                 f.write(voc[k % JPEG_BATCH])
             labels[name] = scenes[k % JPEG_BATCH][1]
-        jpeg.launches = jpeg_color_kernel.launches = 0
+        nvjpeg0, colour0 = program_count("nvjpeg.batches"), program_count("jpeg_color.launches")
         batch_s, batch_out = jpeg_generator_epoch(folder, labels, "cuda", "cuda", SEED + 50)
-        path_launches = dict(nvjpeg_batched=jpeg.launches, colour_kernel=jpeg_color_kernel.launches)
+        path_launches = dict(nvjpeg_batched=program_count("nvjpeg.batches") - nvjpeg0,
+                             colour_kernel=program_count("jpeg_color.launches") - colour0)
         pil_s, pil_out = jpeg_generator_epoch(folder, labels, None, "cuda", SEED + 50)
     n_batches = len(batch_out)
     if path_launches != dict(nvjpeg_batched=n_batches, colour_kernel=n_batches):
@@ -3003,11 +3006,11 @@ def bench_phase(card):
     with mock.patch.dict(os.environ):
         for name in ("BENCH_BATCH", "BENCH_DTYPE", "BENCH_ITERS", "BENCH_REPEATS"):
             os.environ.pop(name, None)  # the defaults: batch 8, bf16, 30 x 5
-        nms_kernel.launches = 0
+        nms0 = program_count("nms.launches")
         t0 = time.perf_counter()
         head = bench.main([])
         torch.cuda.synchronize()
-        launches["bench"] = nms_kernel.launches
+        launches["bench"] = program_count("nms.launches") - nms0
         bench_s = time.perf_counter() - t0
     runs = head["runs"]
     if not (all(k in head for k in BENCH_KEYS + BENCH_ADDED_KEYS)
@@ -3027,11 +3030,11 @@ def bench_phase(card):
 
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "matrix.json")
-        nms_kernel.launches = 0
+        nms0 = program_count("nms.launches")
         t0 = time.perf_counter()
         matrix = bench_all.main(["--quick", "--out", out])
         torch.cuda.synchronize()
-        launches["bench_matrix"] = nms_kernel.launches
+        launches["bench_matrix"] = program_count("nms.launches") - nms0
         matrix_s = time.perf_counter() - t0
         with open(out) as f:
             written = json.load(f)
@@ -3077,7 +3080,7 @@ def entry_phase(card):
 
     device = torch.device("cuda")
     torch.cuda.empty_cache()
-    nms_before, colour_before = nms_kernel.launches, jpeg_color_kernel.launches
+    nms_before, colour_before = program_count("nms.launches"), program_count("jpeg_color.launches")
     forward, (model, x) = graft_entry.entry()
     if not (x.device.type == "cuda" and model.mode == "training"
             and model.compute_dtype == torch.bfloat16):
@@ -3098,8 +3101,14 @@ def entry_phase(card):
     captured = graft_entry.CapturedForward(forward, model, x)
     reserved_delta = torch.cuda.memory_reserved() - reserved
     pool = graph_pool_bytes(captured.graph)
+    epilogues0 = program_count("conv_epilogue.launches")
     replay = captured()
     torch.cuda.synchronize()
+    replay_epilogues = program_count("conv_epilogue.launches") - epilogues0
+    if (captured.counts != {"conv_epilogue.launches": EPILOGUES_A_FORWARD["ssd300"]}
+            or replay_epilogues != EPILOGUES_A_FORWARD["ssd300"]):
+        raise AssertionError(f"entry: the graph holds the counts {captured.counts}, and its "
+                             f"replay counted {replay_epilogues} epilogue launches")
     if not torch.equal(replay, y):
         raise AssertionError(f"entry: the graph replay differs from the eager call, max |diff| "
                              f"{float((replay - y).abs().max())}")
@@ -3125,7 +3134,8 @@ def entry_phase(card):
     replay_ms = summary(time_cuda(captured.graph.replay, iters=ENTRY_TIMED_ITERS,
                                   repeats=ENTRY_TIMED_REPEATS))
     eager_device_ms = time_calls(lambda: forward(model, x), device, iters=5)
-    if (nms_kernel.launches, jpeg_color_kernel.launches) != (nms_before, colour_before):
+    if (program_count("nms.launches") != nms_before
+            or program_count("jpeg_color.launches") != colour_before):
         raise AssertionError("entry: the training-mode path launched the NMS or colour kernel")
     line = dict(metric="graft_entry", batch=graft_entry.BATCH, dtype="bf16", mode="training",
                 shape=list(y.shape), replay_bit_equal=True, bf16_vs_f32_rel_l2=rel,
@@ -3135,7 +3145,7 @@ def entry_phase(card):
                       "back (replay: graph.replay() alone)",
                 graph_pool_mb=pool / 2 ** 20 if isinstance(pool, int) else pool,
                 reserved_delta_mb=reserved_delta / 2 ** 20, nms_or_colour_launches=0,
-                card=card)
+                replay_epilogue_launches=replay_epilogues, card=card)
     log(f"phase 17: entry eager {eager_ms['median']:.3f} ms, replay {replay_ms['median']:.3f} "
         f"ms (bit-equal), pool {line['graph_pool_mb']} MB, bf16 vs f32 {rel}")
     del captured
@@ -3239,9 +3249,9 @@ def epilogue_forward_ms(model, x, device):
     # Some 200 launches a forward: three forwards keep the launch queue
     # short of its ~1000 entries.
     fused_ms = time_calls(lambda: forward(x), device, iters=3)
-    epilogue_kernel.launches = 0
+    epilogues0 = program_count("conv_epilogue.launches")
     forward(x)
-    launches = epilogue_kernel.launches
+    launches = program_count("conv_epilogue.launches") - epilogues0
     kernel = epilogue_kernel.conv_epilogue
     epilogue_kernel.conv_epilogue = library_epilogue
     try:
@@ -3324,25 +3334,25 @@ def main():
     bf16 = model_for(state, "inference", torch.bfloat16, device)
     fast = model_for(state, "inference_fast", torch.float32, device)
 
-    nms_kernel.launches = 0
-    epilogue_kernel.launches = 0
+    nms0 = program_count("nms.launches")
+    epilogues0 = program_count("conv_epilogue.launches")
     epilogues = []
     det_f32 = f32(x)
     torch.cuda.synchronize()
-    after_f32 = nms_kernel.launches
-    epilogues.append(epilogue_kernel.launches)
+    after_f32 = program_count("nms.launches") - nms0
+    epilogues.append(program_count("conv_epilogue.launches") - epilogues0)
     det_bf16 = bf16(x)
     torch.cuda.synchronize()
-    after_bf16 = nms_kernel.launches
-    epilogues.append(epilogue_kernel.launches)
+    after_bf16 = program_count("nms.launches") - nms0
+    epilogues.append(program_count("conv_epilogue.launches") - epilogues0)
     det_fast = fast(x)
     torch.cuda.synchronize()
-    after_fast = nms_kernel.launches
-    epilogues.append(epilogue_kernel.launches)
+    after_fast = program_count("nms.launches") - nms0
+    epilogues.append(program_count("conv_epilogue.launches") - epilogues0)
     det_one = bf16(x[:1])  # batch 1: the per-class gathers come back strided
     torch.cuda.synchronize()
-    main_launches = nms_kernel.launches
-    main_epilogues = epilogue_kernel.launches
+    main_launches = program_count("nms.launches") - nms0
+    main_epilogues = program_count("conv_epilogue.launches") - epilogues0
     epilogues.append(main_epilogues)
     log(f"main path NMS launches: f32 {after_f32}, bf16 {after_bf16 - after_f32}, "
         f"fast {after_fast - after_bf16}, bf16 batch 1 {main_launches - after_fast}; "

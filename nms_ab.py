@@ -32,6 +32,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke as cs
 from ssd_keras_torch import decoder
+from ssd_keras_torch.kernels import build
 from ssd_keras_torch.kernels import nms as nms_kernel
 from ssd_keras_torch.utils.profiling import summary, time_cuda, time_device
 
@@ -83,11 +84,11 @@ def host_split(b, v, card):
     while the card is held; prints one JSON line."""
     lanes, k = v.shape
     index = b.device.index
-    stream = nms_kernel._stream(index)
+    stream = build.raw_stream(index)
     words = lanes * k * nms_kernel.mask_words(k)
     keep = torch.empty_like(v)
     mask = torch.empty(words, dtype=torch.int64, device=b.device)
-    lib = nms_kernel.load_library()
+    lib = build.load_library()
     args = (b.data_ptr(), v.data_ptr(), keep.data_ptr(), mask.data_ptr(), lanes, k,
             cs.IOU_THRESHOLD, 0.0, stream)
 
@@ -100,7 +101,7 @@ def host_split(b, v, card):
         "checks": lambda: (nms_kernel._check(b, v), nms_kernel._check_cuda(b)),
         "empty_like_keep": lambda: torch.empty_like(v),
         "kept_scratch": lambda: nms_kernel._scratch(index, stream, words),
-        "raw_stream": lambda: nms_kernel._stream(index),
+        "raw_stream": lambda: build.raw_stream(index),
         "current_device": torch.cuda.current_device,
         "c_entry_two_launches": lambda: lib.ssd_greedy_nms(*args),
         "c_entry_pass_a_only": lambda: lib.ssd_nms_iou_mask(*args[:2], *args[3:]),
@@ -127,19 +128,21 @@ def parent_nms(package_dir):
     which imports ``ssd_keras_torch.kernels.build`` by name, loaded while
     that name points at the other tree's ``kernels/build.py``."""
     package = Path(package_dir)
-    build = _load("parent_build", package / "kernels" / "build.py")
+    other = _load("parent_build", package / "kernels" / "build.py")
     name = "ssd_keras_torch.kernels.build"
     ours = sys.modules[name]
-    sys.modules[name] = build
+    sys.modules[name] = other
     try:
         wrapper = _load("parent_nms", package / "kernels" / "nms.py")
     finally:
         sys.modules[name] = ours
-    if wrapper.load_library is not build.load_library:
-        raise RuntimeError(f"{package / 'kernels' / 'nms.py'} does not take load_library from "
+    # A newer tree's wrapper takes ``launch``, an older one ``load_library``.
+    taken = [fn for fn in ("launch", "load_library") if hasattr(wrapper, fn)]
+    if not taken or getattr(wrapper, taken[0]) is not getattr(other, taken[0]):
+        raise RuntimeError(f"{package / 'kernels' / 'nms.py'} does not take its launch from "
                            "ssd_keras_torch.kernels.build: this loader would time this tree's "
                            "kernel as the other's")
-    return wrapper.greedy_nms_mask_batched, build.BUILD_DIR
+    return wrapper.greedy_nms_mask_batched, other.BUILD_DIR
 
 
 def serving_ab(parent, serving, x, card):

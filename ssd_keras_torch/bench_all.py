@@ -66,11 +66,10 @@ from ssd_keras_torch.data.device_aug import DeviceSSDAugmentation
 from ssd_keras_torch.decoder import decode_detections_fixed
 from ssd_keras_torch.devices import target_device
 from ssd_keras_torch.examples.common import add_device_args, card_line, scale_to_trained_range
-from ssd_keras_torch.kernels import nms as nms_kernel
 from ssd_keras_torch.models import (ssd7_predictor_sizes, ssd300_predictor_sizes,
                                     ssd512_predictor_sizes, ssd_7, ssd_300, ssd_512)
 from ssd_keras_torch.optimize import fold_batchnorm
-from ssd_keras_torch.utils.profiling import benchmark_fps, time_calls
+from ssd_keras_torch.utils.profiling import benchmark_fps, counters, time_calls
 
 __all__ = ["BASELINE_FPS", "MATRIX", "Row", "augment_encode_work", "build",
            "device_resident_work", "families", "folded_work", "fwd_decode_work",
@@ -407,11 +406,11 @@ def main(argv=None) -> dict:
     rows = []
     with torch.no_grad():
         for row in MATRIX:
-            before = nms_kernel.launches
+            before = counters().get("nms.launches", 0)
             ms, fps, timer = row.measure(ctx)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
-            launches = nms_kernel.launches - before
+            launches = counters().get("nms.launches", 0) - before
             if device.type == "cuda" and row.decodes and launches <= 0:
                 raise AssertionError(f"{row.name}: the NMS kernel was never launched")
             baseline = row.baseline

@@ -56,12 +56,6 @@ __all__ = [
 ]
 
 
-# NMS lanes recorded into CUDA graphs: ``_nms_lanes`` adds each call's lanes
-# here under capture, where ``decode.lanes`` counts them on an eager call;
-# the predictor counts a graph's share at each replay.
-captured_lanes = 0
-
-
 def _f32(x: float) -> float:
     return float(np.float32(x))
 
@@ -195,14 +189,9 @@ def _nms_lanes(cand_boxes, valid, iou_threshold, border_delta, max_output_size):
     """Greedy-NMS keep mask (..., K) of boxes (..., K, 4) and valid (..., K),
     the leading axes flattened into the kernel's lanes; at most
     ``max_output_size`` survivors a lane. Counts the lanes in
-    ``decode.lanes`` (in ``captured_lanes`` under CUDA-graph capture)."""
-    global captured_lanes
+    ``decode.lanes``."""
     k = valid.shape[-1]
-    lanes = valid.numel() // k if k else 0
-    if valid.is_cuda and torch.cuda.is_current_stream_capturing():
-        captured_lanes += lanes
-    else:
-        count("decode.lanes", lanes)
+    count("decode.lanes", valid.numel() // k if k else 0)
     # The gathers can return strided tensors (at batch 1 they do); the NMS
     # kernel takes contiguous ones.
     keep = greedy_nms_mask_batched(

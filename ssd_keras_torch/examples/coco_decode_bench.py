@@ -37,9 +37,8 @@ import torch
 from ssd_keras_torch import SSDConfig
 from ssd_keras_torch.decoder import decode_detections_fixed
 from ssd_keras_torch.examples.common import add_device_args, card_line, device_of
-from ssd_keras_torch.kernels import nms as nms_kernel
 from ssd_keras_torch.models import ssd_300
-from ssd_keras_torch.utils.profiling import benchmark_fps, time_calls
+from ssd_keras_torch.utils.profiling import benchmark_fps, counters, time_calls
 
 COMPACT_POOLS = (0, 512, 1024, 2048, "auto")
 # Calls a repeat of the device-time reading (~150 kernels a call).
@@ -64,7 +63,7 @@ def sweep(device, batch=8, n_iters=25, n_repeats=3, iters=ITERS, warmup=2):
                 return decode_detections_fixed(model(b), img_height=300, img_width=300,
                                                compact_pool=m)
 
-            launches0 = nms_kernel.launches
+            launches0 = counters().get("nms.launches", 0)
             r = benchmark_fps(e2e, x, n_iters=n_iters, n_repeats=n_repeats, warmup=warmup)
             with torch.no_grad():
                 dev = time_calls(lambda: e2e(x), device, iters, n_repeats, warmup)
@@ -73,7 +72,7 @@ def sweep(device, batch=8, n_iters=25, n_repeats=3, iters=ITERS, warmup=2):
                          "img_per_s": r["fps"],
                          "device_ms": dev["median"],
                          "device_spread_pct": dev["spread_pct"],
-                         "nms_launches": nms_kernel.launches - launches0})
+                         "nms_launches": counters().get("nms.launches", 0) - launches0})
             if not all(math.isfinite(rows[-1][k])
                        for k in ("ms_per_batch", "img_per_s", "device_ms")):
                 raise AssertionError(f"non-finite timing: {rows[-1]}")

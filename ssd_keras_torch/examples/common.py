@@ -13,8 +13,8 @@ import torch
 
 from ssd_keras_torch.config import SSDConfig
 from ssd_keras_torch.devices import target_device
-from ssd_keras_torch.kernels import nms as nms_kernel
 from ssd_keras_torch.models import ssd_300
+from ssd_keras_torch.utils.profiling import counters
 from ssd_keras_torch.weights_io import load_keras_h5_weights
 
 __all__ = [
@@ -125,7 +125,7 @@ def read_images(paths: Sequence[str], size: Tuple[int, int]) -> Tuple[np.ndarray
 def print_nms_launches() -> None:
     """How often this process launched the greedy-NMS CUDA kernel (0 on the
     CPU, where the plain version runs)."""
-    print(f"NMS kernel launches: {nms_kernel.launches}")
+    print(f"NMS kernel launches: {counters().get('nms.launches', 0)}")
 
 
 def card_line(device) -> str:

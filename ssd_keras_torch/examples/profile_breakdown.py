@@ -50,10 +50,9 @@ import torch
 from ssd_keras_torch import SSDConfig
 from ssd_keras_torch import decoder as D
 from ssd_keras_torch.examples.common import add_device_args, card_line, device_of, seeded_ssd300
-from ssd_keras_torch.kernels import nms as nms_kernel
 from ssd_keras_torch.models import ssd_7
 from ssd_keras_torch.ops.boxes import border_delta
-from ssd_keras_torch.utils.profiling import benchmark_fps, time_calls
+from ssd_keras_torch.utils.profiling import benchmark_fps, counters, time_calls
 
 # Calls a repeat: an eager SSD300 or SSD7 forward enqueues ~100-200 kernels,
 # a decode stage a few; either way well under the launch queue's ~1000.
@@ -113,7 +112,7 @@ def ssd300_breakdown(batch, device, fps_iters=20, iters_forward=ITERS_FORWARD,
     model_t = seeded_ssd300("training", torch.bfloat16, device, cfg)
     model_i = seeded_ssd300("inference", torch.bfloat16, device, cfg)
 
-    launches0 = nms_kernel.launches
+    launches0 = counters().get("nms.launches", 0)
     with torch.no_grad():
         r_trunk = benchmark_fps(model_t, x, n_iters=fps_iters, n_repeats=min(repeats, 3))
         r_e2e = benchmark_fps(model_i, x, n_iters=fps_iters, n_repeats=min(repeats, 3))
@@ -143,7 +142,7 @@ def ssd300_breakdown(batch, device, fps_iters=20, iters_forward=ITERS_FORWARD,
         "nms_lanes": [batch * 20, min(NMS_MAX_OUTPUT, D._resolve_compact_pool(
             "auto", y.shape[1], NMS_MAX_OUTPUT))],
         "stages_equal_decoder": True,
-        "nms_launches": nms_kernel.launches - launches0,
+        "nms_launches": counters().get("nms.launches", 0) - launches0,
         "stage_spread_pct": {key: s["spread_pct"] for key, s in stages.items()},
         "stage_timer": {"timer": stages["stage_nms_ms"]["timer"], "iters": iters_stage,
                         "repeats": repeats},

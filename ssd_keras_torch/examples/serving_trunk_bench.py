@@ -56,10 +56,9 @@ import torch.nn.functional as F
 
 from ssd_keras_torch import SSDConfig
 from ssd_keras_torch.examples.common import add_device_args, card_line, device_of, seeded_ssd300
-from ssd_keras_torch.kernels import nms as nms_kernel
 from ssd_keras_torch.models.layers import preprocess_input
 from ssd_keras_torch.optimize import fold_preprocessing
-from ssd_keras_torch.utils.profiling import benchmark_fps, time_calls
+from ssd_keras_torch.utils.profiling import benchmark_fps, counters, time_calls
 
 # NVIDIA's data sheet for one H100 SXM: dense bf16 on the tensor cores, HBM3.
 PEAK_BF16_TFLOPS = 989.0
@@ -228,7 +227,7 @@ def flag_run(name, batch, device, n_iters=25, n_repeats=3, iters=ITERS_FORWARD,
         "dispatched_img_per_s": r["fps"], "chained_ms": ms,
         "chained_img_per_s": batch / ms * 1000,
         "cudnn_benchmark": torch.backends.cudnn.benchmark,
-        "nms_launches": nms_kernel.launches}), flush=True)
+        "nms_launches": counters().get("nms.launches", 0)}), flush=True)
 
 
 def flag_sweep(device, batch=8, n_iters=25, n_repeats=3):

@@ -12,7 +12,7 @@ Port of ``__graft_entry__.py``:
   the grad mode, as JAX's ``forward`` is a pure, differentiable function.
 * On the card the counterpart of JAX's compile of ``forward`` is a CUDA
   graph of it, :class:`CapturedForward`, captured as the predictor captures
-  its own (``predictor._ShapeGraph``).
+  its own (``utils.cuda_graph.CapturedGraph``).
 * :func:`dryrun_multichip` is ``parallel.dryrun.dryrun_multichip``;
   ``python -m ssd_keras_torch.graft_entry`` runs it with ``N_DEVICES`` ranks
   (default 8) as gloo ranks on the CPU, as the JAX dry run pins its CPU
@@ -30,7 +30,7 @@ from ssd_keras_torch.config import SSDConfig
 from ssd_keras_torch.devices import target_device
 from ssd_keras_torch.models import ssd_300
 from ssd_keras_torch.parallel.dryrun import dryrun_multichip
-from ssd_keras_torch.predictor import WARMUP_CALLS
+from ssd_keras_torch.utils.cuda_graph import CapturedGraph
 
 __all__ = ["entry", "entry_model", "example_batch", "forward", "CapturedForward",
            "dryrun_multichip", "BATCH"]
@@ -67,45 +67,22 @@ def entry(device="cuda"):
     return forward, (model, x)
 
 
-class CapturedForward:
+class CapturedForward(CapturedGraph):
     """``forward(model, x)`` captured as a CUDA graph over a static copy of
-    ``x``.
-
-    ``WARMUP_CALLS`` eager calls run on the capture stream first, under
-    inference mode: they fill the model's kept bf16 weight copies
-    (``SSDModule._cast_cache``) and its device constants, so the capture
-    records no cast and no allocation outside the graph's private pool. The
-    graph reads by raw pointer what lies outside that pool: ``keep_alive``
-    holds the parameters, buffers, kept casts and constants for as long as
-    the graph lives. Change no weight while it lives.
-    """
+    ``x`` (``utils.cuda_graph.CapturedGraph``): its warm-up fills the
+    model's kept bf16 weight copies and device constants, and the graph
+    keeps the model's ``graph_inputs`` alive. Change no weight while it
+    lives. A call copies ``x`` in (if given), replays on the current
+    stream, counts the launches the graph holds, and returns a copy of the
+    output."""
 
     def __init__(self, forward, model: torch.nn.Module, x: torch.Tensor):
         if x.device.type != "cuda":
             raise ValueError(f"a CUDA graph takes a CUDA input, got one on {x.device}")
-        current = torch.cuda.current_stream(x.device)
-        self.stream = torch.cuda.Stream(x.device)
-        self.stream.wait_stream(current)
-        with torch.inference_mode(), torch.cuda.stream(self.stream):
-            self.static_in = x.clone()
-            for _ in range(WARMUP_CALLS):
-                forward(model, self.static_in)
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph, stream=self.stream):
-                self.static_out = forward(model, self.static_in)
-        current.wait_stream(self.stream)
-        kept = [t for cached in model._cast_cache.values() for t in cached[2]]
-        consts = [t for t in model._constants(x.device).values() if t is not None]
-        self.keep_alive = [*model.parameters(), *model.buffers(), *kept, *consts]
-
-    def __call__(self, x: torch.Tensor = None) -> torch.Tensor:
-        """Copy ``x`` in (if given), replay on the current stream, and return
-        a copy of the output (the next replay overwrites the static one)."""
         with torch.inference_mode():
-            if x is not None:
-                self.static_in.copy_(x)
-            self.graph.replay()
-            return self.static_out.clone()
+            static_in = x.clone()
+        super().__init__(lambda t: forward(model, t), static_in, torch.cuda.Stream(x.device),
+                         lambda: model.graph_inputs(x.device))
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels, built by nvcc at first use (``build``).
 
 ``greedy_nms_mask_batched`` is the NMS kernel's wrapper; ``nms`` stays the
-submodule (its ``launches`` counter is read by name)."""
+submodule."""
 
 from ssd_keras_torch.kernels.nms import greedy_nms_mask_batched
 

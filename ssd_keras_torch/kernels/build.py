@@ -21,6 +21,9 @@ and linked with ``-lnvjpeg`` from ``$CUDA_HOME/lib64``
 header and library come from the toolkit that holds ``nvcc``
 (``$CUDA_HOME``, else ``nvcc``'s own directory); a missing ``nvjpeg.h``
 raises.
+
+Every wrapper calls its C entry through :func:`launch`, on its tensors'
+card and that card's current stream.
 """
 
 from __future__ import annotations
@@ -35,8 +38,10 @@ import tempfile
 from pathlib import Path
 from typing import List, Sequence
 
-__all__ = ["nvcc_command", "find_nvcc", "load_library", "load_nvjpeg_library",
-           "nvjpeg_flags", "CSRC_DIR", "BUILD_DIR", "NVJPEG_SOURCE"]
+import torch
+
+__all__ = ["nvcc_command", "find_nvcc", "launch", "load_library", "load_nvjpeg_library",
+           "nvjpeg_flags", "raw_stream", "CSRC_DIR", "BUILD_DIR", "NVJPEG_SOURCE"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -154,6 +159,32 @@ def load_library() -> ctypes.CDLL:
     lib.ssd_conv_epilogue.argtypes = [p, p, p, i, q, q, q, i, p]
     lib.ssd_conv_epilogue.restype = ctypes.c_int
     return lib
+
+
+def raw_stream(index: int) -> int:
+    """Card ``index``'s current stream as a raw handle (what
+    ``torch.cuda.current_stream(index).cuda_stream`` gives, without making a
+    Stream object)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def launch(entry: str, device: torch.device, *args) -> None:
+    """Call the kernels library's C entry ``entry`` with ``args`` and then
+    the raw handle of ``device``'s current stream, on that card; raises
+    ``RuntimeError`` on a non-zero status. The device is switched only when
+    it is not the current one, through the raw calls behind
+    ``torch.cuda.current_device``: every convolution of an eager forward
+    comes here, so the host's few microseconds count."""
+    index = device.index
+    fn = getattr(load_library(), entry)
+    stream = raw_stream(index)
+    if index == torch._C._cuda_getDevice():
+        status = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            status = fn(*args, stream)
+    if status != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {status}")
 
 
 def _load(lib_path: Path) -> ctypes.CDLL:

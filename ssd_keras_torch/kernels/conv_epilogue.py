@@ -12,11 +12,9 @@ written once and the residual read once (see the source's header).
 
 Dispatch is by the tensors' device and nothing else: CPU tensors go to the
 plain PyTorch version (``ops/conv_epilogue.py``); CUDA tensors launch the
-kernel or raise. ``launches`` counts the calls that launched it, and so
-does the program counter ``conv_epilogue.launches``
-(``utils.profiling.count``). Under CUDA-graph capture (the predictor's
-per-shape graphs) a call counts in ``captured`` instead; whoever replays
-the graph counts its calls with ``replayed``.
+kernel or raise. The counter ``conv_epilogue.launches``
+(``utils.profiling.count``) counts the calls that launched it; a call under
+CUDA-graph capture counts at each replay (``utils/cuda_graph.py``).
 """
 
 from __future__ import annotations
@@ -26,18 +24,11 @@ from typing import Optional
 
 import torch
 
-from ssd_keras_torch.kernels.build import load_library
+from ssd_keras_torch.kernels.build import launch
 from ssd_keras_torch.ops import conv_epilogue as plain
 from ssd_keras_torch.utils.profiling import count
 
-__all__ = ["COUNTER", "captured", "conv_epilogue", "launches", "replayed"]
-
-COUNTER = "conv_epilogue.launches"
-# Incremented once per call that launches the kernel (never for the CPU
-# path), and by ``replayed`` for each call a replayed CUDA graph holds.
-launches = 0
-# Calls recorded into CUDA graphs under capture (they launch at replay).
-captured = 0
+__all__ = ["conv_epilogue"]
 
 # The C entry's dtype codes (csrc/conv_epilogue.cu:Dtype).
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -78,14 +69,6 @@ def _check(y: torch.Tensor, bias: torch.Tensor, residual: Optional[torch.Tensor]
     return _inner(y)
 
 
-def replayed(calls: int) -> None:
-    """Count ``calls`` launches of the kernel: a CUDA graph holding that many
-    calls of the wrapper was replayed."""
-    global launches
-    launches += calls
-    count(COUNTER, calls)
-
-
 def conv_epilogue(y: torch.Tensor, bias: torch.Tensor, residual: Optional[torch.Tensor] = None,
                   relu: bool = False) -> torch.Tensor:
     """``y <- relu?(y + bias[c] + residual?)`` in place, rounded to ``y``'s
@@ -94,7 +77,6 @@ def conv_epilogue(y: torch.Tensor, bias: torch.Tensor, residual: Optional[torch.
     channels_last or contiguous; ``bias``: (C,) of its dtype; ``residual``:
     ``y``'s shape, dtype and strides. On the card one kernel launch on the
     current stream."""
-    global launches, captured
     inner = _check(y, bias, residual)
     if y.device.type == "cpu":
         return plain.conv_epilogue(y, bias, residual, relu)
@@ -102,24 +84,8 @@ def conv_epilogue(y: torch.Tensor, bias: torch.Tensor, residual: Optional[torch.
         raise ValueError(f"unsupported device {y.device}")
     if y.numel() == 0:
         return y
-    index = y.device.index
-    args = (y.data_ptr(), bias.data_ptr(), None if residual is None else residual.data_ptr(),
-            _DTYPES[y.dtype], y.numel(), y.shape[1], inner, int(relu),
-            torch._C._cuda_getCurrentRawStream(index))
-    fn = load_library().ssd_conv_epilogue
-    # The raw calls behind torch.cuda.current_device and
-    # is_current_stream_capturing: every convolution of an eager forward
-    # comes here, so the host's few microseconds count.
-    if index == torch._C._cuda_getDevice():
-        status = fn(*args)
-    else:
-        with torch.cuda.device(index):
-            status = fn(*args)
-    if status != 0:
-        raise RuntimeError(f"ssd_conv_epilogue launch failed: CUDA error {status}")
-    if torch._C._cuda_isCurrentStreamCapturing():
-        captured += 1
-    else:
-        launches += 1
-        count(COUNTER)
+    launch("ssd_conv_epilogue", y.device, y.data_ptr(), bias.data_ptr(),
+           None if residual is None else residual.data_ptr(), _DTYPES[y.dtype], y.numel(),
+           y.shape[1], inner, int(relu))
+    count("conv_epilogue.launches")
     return y

@@ -15,7 +15,8 @@ whole chroma rows) and at most ``TILE_COLS`` columns, about
 
 Dispatch is by the tensors' device and nothing else: CPU tensors go to the
 plain PyTorch version (``ops/jpeg_color.py:ycc_to_rgb``); CUDA tensors
-launch the kernel or raise. ``launches`` counts the calls that launched it.
+launch the kernel or raise. The counter ``jpeg_color.launches``
+(``utils.profiling.count``) counts the calls that launched it.
 """
 
 from __future__ import annotations
@@ -23,14 +24,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ssd_keras_torch.kernels.build import load_library
+from ssd_keras_torch.kernels import build
 from ssd_keras_torch.ops import jpeg_color
+from ssd_keras_torch.utils.profiling import count
 
-__all__ = ["launches", "ycc_to_rgb", "bands", "tile_shape", "tile_table", "launch"]
-
-# Incremented once per call that launches the kernel (never for the CPU
-# path): a run can show that its JPEG batches went through the kernel.
-launches = 0
+__all__ = ["ycc_to_rgb", "bands", "tile_shape", "tile_table", "launch"]
 
 # The kernel's tile plan (``csrc/jpeg_color.cu`` holds the same constants,
 # and sizes its shared staging for the largest tile they allow).
@@ -82,34 +80,27 @@ def tile_table(rows: np.ndarray):
 def launch(planes: torch.Tensor, table: torch.Tensor, n_images: int, n_tiles: int,
            out: torch.Tensor) -> None:
     """One launch of the kernel on the current stream, counted in
-    ``launches``: ``table`` (``tile_table``'s array, on ``planes``' card)
+    ``jpeg_color.launches``: ``table`` (``tile_table``'s array, on ``planes``' card)
     for ``n_images`` layout rows and ``n_tiles`` tiles, the pixels into
     ``out``. The caller checks the layout (``ycc_to_rgb`` does); raises
     ``ValueError`` on a table or output of another size, type or device."""
-    global launches
     if (table.dtype != torch.int64 or table.device != planes.device or not table.is_contiguous()
             or table.numel() != n_images * len(jpeg_color.LAYOUT_FIELDS) + n_tiles * 2):
         raise ValueError(f"table: {table.dtype} {tuple(table.shape)} on {table.device} is not "
                          f"the table of {n_images} images and {n_tiles} tiles on {planes.device}")
     if out.dtype != torch.uint8 or out.device != planes.device or not out.is_contiguous():
         raise ValueError(f"out: {out.dtype} on {out.device}, not uint8 on {planes.device}")
-    index = planes.device.index
-    with torch.cuda.device(index):
-        stream = torch.cuda.current_stream(index).cuda_stream
-        status = load_library().ssd_jpeg_ycc_to_rgb(
-            planes.data_ptr(), planes.numel(), table.data_ptr(),
-            table.data_ptr() + 8 * n_images * len(jpeg_color.LAYOUT_FIELDS), out.data_ptr(),
-            n_tiles, stream)
-    if status != 0:
-        raise RuntimeError(f"ssd_jpeg_ycc_to_rgb launch failed: CUDA error {status}")
-    launches += 1
+    build.launch("ssd_jpeg_ycc_to_rgb", planes.device, planes.data_ptr(), planes.numel(),
+                 table.data_ptr(), table.data_ptr() + 8 * n_images * len(jpeg_color.LAYOUT_FIELDS),
+                 out.data_ptr(), n_tiles)
+    count("jpeg_color.launches")
 
 
 def ycc_to_rgb(planes: torch.Tensor, layout: torch.Tensor, out_bytes: int) -> torch.Tensor:
     """The batch's pixels, a flat uint8 tensor of ``out_bytes`` on
     ``planes``' device (see ``ops/jpeg_color.py`` for ``layout``, a CPU
     int64 (n, 9) tensor). On the card: one kernel launch on the current
-    stream, counted in ``launches``; the layout and the tiles' table go up
+    stream, counted in ``jpeg_color.launches``; the layout and the tiles' table go up
     together from pinned memory without a wait."""
     if planes.dtype != torch.uint8 or planes.dim() != 1 or not planes.is_contiguous():
         raise ValueError(f"planes must be a contiguous 1-D uint8 tensor, got {planes.dtype} "

@@ -15,8 +15,9 @@ one warp, serially in bit operations only.
 
 Dispatch is by the tensors' device and nothing else: a CPU tensor goes to
 the plain PyTorch version (``ops/nms.py:greedy_nms_mask``); a CUDA tensor
-launches the kernel or raises. ``launches`` counts calls that launched the
-kernel (each is two kernel launches, pass A then pass B).
+launches the kernel or raises. The counter ``nms.launches``
+(``utils.profiling.count``) counts the calls that launched the kernel (each
+is two kernel launches, pass A then pass B).
 
 The decode calls this once a batch and is host-bound on sparse lanes, so a
 call does little on the host besides its two launches: it allocates only
@@ -25,28 +26,20 @@ largest call seen (3.6 MB at L = 160, K = 400; 57 MB at L = 2560), and
 the device is switched only when it is not the current one.
 
 Under CUDA-graph capture (the predictor's per-shape graphs) a call launches
-nothing: it records its two kernels into the graph, counts in ``captured``
-and not in ``launches``, and takes a scratch of its own from the graph's
-private pool, which no eager call reuses. Whoever replays the graph counts
-its calls with ``replayed``.
+nothing: it records its two kernels into the graph and takes a scratch of
+its own from the graph's private pool, which no eager call reuses. Its count
+is held by the capture and made at each replay (``utils/cuda_graph.py``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ssd_keras_torch.kernels.build import load_library
+from ssd_keras_torch.kernels.build import launch, raw_stream
 from ssd_keras_torch.ops.nms import greedy_nms_mask, mask_words
-from ssd_keras_torch.utils.profiling import span
+from ssd_keras_torch.utils.profiling import count, span
 
-__all__ = ["captured", "greedy_nms_mask_batched", "iou_mask", "launches", "replayed"]
-
-# Incremented once per call that launches the kernel (never for the CPU
-# path), and by ``replayed`` for each call a replayed CUDA graph holds: a
-# run can show that its NMS went through the kernel.
-launches = 0
-# Calls recorded into CUDA graphs under capture (they launch at replay).
-captured = 0
+__all__ = ["greedy_nms_mask_batched", "iou_mask"]
 
 # Pass B keeps each lane's removed bitmap, ceil(K / 64) words, in static
 # shared memory sized for 160 words (csrc/nms.cu:kMaxWords).
@@ -78,25 +71,6 @@ def _check_cuda(boxes: torch.Tensor) -> None:
         )
 
 
-def _stream(index: int) -> int:
-    """Card ``index``'s current stream as a raw handle (what
-    ``torch.cuda.current_stream(index).cuda_stream`` gives, without making a
-    Stream object)."""
-    return torch._C._cuda_getCurrentRawStream(index)
-
-
-def _launch(entry: str, index: int, stream: int, *args) -> None:
-    """Call the C entry ``entry`` on card ``index`` and ``stream``."""
-    fn = getattr(load_library(), entry)
-    if index == torch.cuda.current_device():
-        status = fn(*args, stream)
-    else:
-        with torch.cuda.device(index):
-            status = fn(*args, stream)
-    if status != 0:
-        raise RuntimeError(f"{entry} launch failed: CUDA error {status}")
-
-
 # Pass A's scratch for each (device index, raw stream). A call's two kernels
 # run on its stream after every earlier call's, so the next call on the same
 # stream may reuse the words; pass B reads only the words pass A writes in
@@ -120,13 +94,6 @@ def _graph_scratch(device: torch.device, words: int) -> torch.Tensor:
     return torch.empty(words, dtype=torch.int64, device=device)
 
 
-def replayed(calls: int) -> None:
-    """Count ``calls`` launches of the kernel: a CUDA graph holding that many
-    calls of the wrapper was replayed."""
-    global launches
-    launches += calls
-
-
 def greedy_nms_mask_batched(
     boxes: torch.Tensor,
     valid: torch.Tensor,
@@ -136,8 +103,7 @@ def greedy_nms_mask_batched(
     """(L, K) bool keep mask for (L, K, 4) f32 corners sorted by score
     descending per lane and an (L, K) bool ``valid`` mask. On the card one
     call is two kernel launches (pass A, pass B) and counts once in
-    ``launches`` (in ``captured`` under CUDA-graph capture)."""
-    global launches, captured
+    ``nms.launches``."""
     _check(boxes, valid)
     if boxes.device.type == "cpu":
         return greedy_nms_mask(boxes, valid, iou_threshold, border_delta)
@@ -148,21 +114,16 @@ def greedy_nms_mask_batched(
     if lanes == 0 or k == 0:
         return keep
     with span("nms.launch"):
-        index = boxes.device.index
-        stream = _stream(index)
         words = lanes * k * mask_words(k)
-        capturing = torch.cuda.is_current_stream_capturing()
-        if capturing:
+        if torch.cuda.is_current_stream_capturing():
             mask = _graph_scratch(boxes.device, words)
         else:
-            mask = _scratch(index, stream, words)
-        _launch("ssd_greedy_nms", index, stream, boxes.data_ptr(), valid.data_ptr(),
-                keep.data_ptr(), mask.data_ptr(), lanes, k, float(iou_threshold),
-                float(border_delta))
-    if capturing:
-        captured += 1
-    else:
-        launches += 1
+            index = boxes.device.index
+            mask = _scratch(index, raw_stream(index), words)
+        launch("ssd_greedy_nms", boxes.device, boxes.data_ptr(), valid.data_ptr(),
+               keep.data_ptr(), mask.data_ptr(), lanes, k, float(iou_threshold),
+               float(border_delta))
+    count("nms.launches")
     return keep
 
 
@@ -177,14 +138,13 @@ def iou_mask(
     in plain PyTorch. Only the words pass B reads are written (rows below
     the lane's trip bound, words from the row's own 64-row chunk up to the
     bound's); the rest are left as ``torch.empty`` gave them. Not counted in
-    ``launches``: the main path does not call it."""
+    ``nms.launches``: the main path does not call it."""
     _check(boxes, valid)
     _check_cuda(boxes)
     lanes, k = valid.shape
     mask = torch.empty(lanes, k, mask_words(k), dtype=torch.int64, device=boxes.device)
     if lanes == 0 or k == 0:
         return mask
-    index = boxes.device.index
-    _launch("ssd_nms_iou_mask", index, _stream(index), boxes.data_ptr(), valid.data_ptr(),
-            mask.data_ptr(), lanes, k, float(iou_threshold), float(border_delta))
+    launch("ssd_nms_iou_mask", boxes.device, boxes.data_ptr(), valid.data_ptr(),
+           mask.data_ptr(), lanes, k, float(iou_threshold), float(border_delta))
     return mask

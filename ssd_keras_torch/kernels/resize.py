@@ -17,7 +17,8 @@ its taps' address) goes up from pinned memory without a wait.
 
 Dispatch is by the tensors' device and nothing else: CPU tensors go to the
 plain PyTorch version (``ops/resize.py:resize_linear_u8``); CUDA tensors
-launch the kernel or raise. ``launches`` counts the calls that launched it.
+launch the kernel or raise. The counter ``resize_linear.launches``
+(``utils.profiling.count``) counts the calls that launched it.
 """
 
 from __future__ import annotations
@@ -27,15 +28,12 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from ssd_keras_torch.kernels.build import load_library
+from ssd_keras_torch.kernels.build import launch
 from ssd_keras_torch.ops import jpeg_color
 from ssd_keras_torch.ops import resize as plain
+from ssd_keras_torch.utils.profiling import count
 
-__all__ = ["launches", "resize_linear_u8"]
-
-# Incremented once per call that launches the kernel (never for the CPU
-# path): a run can show that its batches were resized on the card.
-launches = 0
+__all__ = ["resize_linear_u8"]
 
 IMAGE_FIELDS = ("offset", "height", "width", "channels", "taps")
 TAPS_KEPT = 64
@@ -67,8 +65,8 @@ def resize_linear_u8(pixels: torch.Tensor, layout: torch.Tensor, out_h: int,
     """The (n, out_h, out_w, 3) uint8 batch on ``pixels``' device: each
     image of ``layout`` (``ops/resize.py``) resized in OpenCV's uint8
     linear arithmetic, gray images to three equal channels. On the card:
-    one kernel launch on the current stream, counted in ``launches``."""
-    global launches
+    one kernel launch on the current stream, counted in
+    ``resize_linear.launches``."""
     if pixels.dtype != torch.uint8 or pixels.dim() != 1 or not pixels.is_contiguous():
         raise ValueError(f"pixels must be a contiguous 1-D uint8 tensor, got {pixels.dtype} "
                          f"{tuple(pixels.shape)}")
@@ -84,21 +82,16 @@ def resize_linear_u8(pixels: torch.Tensor, layout: torch.Tensor, out_h: int,
     out = torch.empty((len(rows), out_h, out_w, 3), dtype=torch.uint8, device=pixels.device)
     if len(rows) == 0:
         return out
-    index = pixels.device.index
     images = np.empty((len(rows), len(IMAGE_FIELDS)), dtype=np.int64)
-    with torch.cuda.device(index):
-        stream = torch.cuda.current_stream(index)
-        for k, row in enumerate(rows):
-            h, w = int(row[_F["height"]]), int(row[_F["width"]])
-            taps = _device_taps(h, w, out_h, out_w, pixels.device)
-            taps.record_stream(stream)  # a table dropped from the cache waits for this launch
-            images[k] = (row[_F["out_offset"]], h, w,
-                         1 if row[_F["kind"]] == jpeg_color.KIND_GRAY else 3, taps.data_ptr())
-        table = torch.from_numpy(images).pin_memory().to(pixels.device, non_blocking=True)
-        status = load_library().ssd_resize_linear_u8(
-            pixels.data_ptr(), table.data_ptr(), len(rows), out_h, out_w, out.data_ptr(),
-            stream.cuda_stream)
-    if status != 0:
-        raise RuntimeError(f"ssd_resize_linear_u8 launch failed: CUDA error {status}")
-    launches += 1
+    stream = torch.cuda.current_stream(pixels.device)
+    for k, row in enumerate(rows):
+        h, w = int(row[_F["height"]]), int(row[_F["width"]])
+        taps = _device_taps(h, w, out_h, out_w, pixels.device)
+        taps.record_stream(stream)  # a table dropped from the cache waits for this launch
+        images[k] = (row[_F["out_offset"]], h, w,
+                     1 if row[_F["kind"]] == jpeg_color.KIND_GRAY else 3, taps.data_ptr())
+    table = torch.from_numpy(images).pin_memory().to(pixels.device, non_blocking=True)
+    launch("ssd_resize_linear_u8", pixels.device, pixels.data_ptr(), table.data_ptr(), len(rows),
+           out_h, out_w, out.data_ptr())
+    count("resize_linear.launches")
     return out

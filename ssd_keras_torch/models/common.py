@@ -74,6 +74,15 @@ class SSDModule(nn.Module):
             self._constants_by_device[device] = consts
         return consts
 
+    def graph_inputs(self, device: torch.device) -> List[torch.Tensor]:
+        """Every tensor the no-grad forward on ``device`` reads and keeps
+        across calls: the parameters and buffers, the kept casts of the
+        weights (``cast_params``) and the device constants. A CUDA graph of
+        the forward reads them by raw pointer and must keep them alive."""
+        kept = [t for entry in self._cast_cache.values() for t in entry[2]]
+        consts = [t for t in self._constants(device).values() if t is not None]
+        return [*self.parameters(), *self.buffers(), *kept, *consts]
+
     def cast_params(self, key: tuple, params: Sequence[torch.Tensor], build: Callable):
         """``build(*params)``: f32 parameters in the compute dtype.
 

@@ -15,7 +15,8 @@ Two backends, chosen by ``device`` and nothing else:
   toolkit's nvJPEG, built by ``kernels/build.py:load_nvjpeg_library`` at its
   first use. Each file's header is read with ``nvjpegGetImageInfo``. The
   bitstreams are gathered into one pinned host buffer and one
-  ``nvjpegDecodeBatched`` call on the current stream decodes the batch
+  ``nvjpegDecodeBatched`` call on the current stream (counted in
+  ``nvjpeg.batches``, ``utils.profiling.count``) decodes the batch
   (baseline, progressive and restart-marked files alike) to its planes,
   all in one allocation on the card. Then one launch of the colour kernel
   (``kernels/jpeg_color.py``: libjpeg's fancy upsampling and YCbCr -> RGB in
@@ -54,18 +55,15 @@ import torch
 
 from ssd_keras_torch.devices import target_device
 from ssd_keras_torch.ops import jpeg_color
+from ssd_keras_torch.utils.profiling import count
 
-__all__ = ["decode_jpeg_batch", "decode_packed", "decode_planes", "jpeg_available", "launches",
+__all__ = ["decode_jpeg_batch", "decode_packed", "decode_planes", "jpeg_available",
            "JPEG_SOURCE"]
 
 JPEG_SOURCE = Path(__file__).resolve().parent / "ssd_jpeg.cpp"
 # The header g++ must find for the host decoder to be built.
 JPEG_HEADER = "jpeglib.h"
 JPEG_LIBRARIES = ("-ljpeg", "-lpthread")
-
-# Incremented once per ``nvjpegDecodeBatched`` call (one a batch): a run can
-# show that its images went through the card's decoder.
-launches = 0
 
 # nvjpegChromaSubsampling_t values the colour kernel takes (4:4:4, 4:2:2,
 # 4:2:0, the ones PIL writes), and gray. Files of other subsamplings
@@ -366,7 +364,6 @@ def _decode_batched(lib, index, bufs, files, planes, planes_at, stream) -> None:
     ``planes`` at ``planes_at`` (three (offset, pitch) a file). If it fails,
     each file is decoded alone to name the one at fault, and the call
     raises."""
-    global launches
     m = len(files)
     sizes = np.array([bufs[i].size for i in files], dtype=np.int64)
     starts = np.cumsum(sizes) - sizes
@@ -392,7 +389,7 @@ def _decode_batched(lib, index, bufs, files, planes, planes_at, stream) -> None:
 
     try:
         code = decode(range(m))
-        launches += 1
+        count("nvjpeg.batches")
         if code != 0:
             for j in range(m):
                 one = decode([j])

@@ -34,7 +34,6 @@ from ssd_keras_torch.data.device_aug import DeviceSSDAugmentation
 from ssd_keras_torch.data.streaming import StreamingDeviceInput
 from ssd_keras_torch.decoder import decode_detections_fixed
 from ssd_keras_torch.encoder import SSDInputEncoder
-from ssd_keras_torch.kernels import nms as nms_kernel
 from ssd_keras_torch.loss import SSDLoss, hard_negative_mask
 from ssd_keras_torch.models import ssd_7, ssd_300
 from ssd_keras_torch.parallel.launch import run_ranks
@@ -47,6 +46,7 @@ from ssd_keras_torch.parallel.sharding import (
     shard_rows,
     upload_sharded,
 )
+from ssd_keras_torch.utils.profiling import counters
 
 __all__ = ["dryrun_multichip", "dp_check_rank"]
 
@@ -128,7 +128,7 @@ def _dryrun_rank(rank: int, device_type: str = "cpu") -> Dict[str, Any]:
     # 4. 'inference' mode: each rank decodes its rows; the detections gathered.
     inf, _ = ssd_7(cfg, mode="inference", device=device)
     inf.load_state_dict(model.state_dict())
-    before = nms_kernel.launches
+    before = counters().get("nms.launches", 0)
     with torch.no_grad():
         dets = global_batch_from_local(inf(x), mesh)
     if dets.shape != (batch, cfg.top_k, 6) or not bool(torch.isfinite(dets).all()):
@@ -136,7 +136,7 @@ def _dryrun_rank(rank: int, device_type: str = "cpu") -> Dict[str, Any]:
                              "or non-finite")
     return dict(rank=rank, world=world, loss=loss, loss_resident=loss2, loss_streamed=loss3,
                 n_streamed=n_streamed, detections=tuple(dets.shape),
-                nms_launches=nms_kernel.launches - before)
+                nms_launches=counters().get("nms.launches", 0) - before)
 
 
 def dryrun_multichip(n_ranks: int = 2, device_type: str = "cpu", timeout: float = 300.0):
@@ -203,7 +203,7 @@ def dp_check_rank(rank: int, spec: Dict[str, Any]) -> Dict[str, Any]:
 
     decode: Optional[str] = spec.get("decode")
     if decode is not None:
-        before = nms_kernel.launches
+        before = counters().get("nms.launches", 0)
         with torch.no_grad():
             if decode == "model":
                 inf, _ = build(cfg, mode="inference", device=device)
@@ -213,7 +213,7 @@ def dp_check_rank(rank: int, spec: Dict[str, Any]) -> Dict[str, Any]:
                 (y_pred,) = shard_batch((spec["y_pred"],), mesh, device)
                 local = decode_detections_fixed(y_pred, **spec.get("decode_kw", {}))
             dets = global_batch_from_local(local, mesh)
-        out["nms_launches"] = nms_kernel.launches - before
+        out["nms_launches"] = counters().get("nms.launches", 0) - before
         out["detections"] = dets.cpu().numpy()
 
     if "neg_losses" in spec:

@@ -26,8 +26,9 @@ the host stages ``predict.prepare``, ``predict.weights_check``,
 (``utils.profiling``); the counters ``predict.requests``,
 ``predict.images``, ``predict.slots`` (chunks times the batch size),
 ``predict.graph_captures`` and ``predict.graph_drops`` count its work, and
-each graph replay adds its NMS lanes to the decoder's ``decode.lanes`` and
-its convolutions' epilogues to ``conv_epilogue.launches``.
+each graph replay makes again the counts its capture held
+(``utils/cuda_graph.py``): the decoder's ``decode.lanes``, the NMS
+kernel's and the convolutions' epilogues' launches.
 """
 
 from __future__ import annotations
@@ -41,10 +42,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ssd_keras_torch import decoder
 from ssd_keras_torch.data.photometric import ConvertTo3Channels
-from ssd_keras_torch.kernels import conv_epilogue as epilogue_kernel
-from ssd_keras_torch.kernels import nms as nms_kernel
+from ssd_keras_torch.utils.cuda_graph import CapturedGraph
 from ssd_keras_torch.utils.profiling import count, span
 
 __all__ = ["SSDPredictor", "device_resize_batch", "resize_bilinear_pil", "to_rgb"]
@@ -124,61 +123,6 @@ def device_resize_batch(images: torch.Tensor, out_height: int, out_width: int) -
     return x.permute(0, 2, 3, 1)
 
 
-# Eager calls on the capture stream before a shape's graph is captured: they
-# fill the model's constants and kept bf16 weights, the NMS scratch of that
-# stream and the libraries' handles, so the capture records no copy from the
-# host, no cast and no allocation outside the graph's own pool.
-WARMUP_CALLS = 1
-
-
-class _ShapeGraph:
-    """One input shape's cast to f32, resize, forward, decode and NMS kernel,
-    captured as a CUDA graph over a static (batch, ih, iw, 3) input and a
-    static (batch, top_k, 6) output.
-
-    A graph reads by raw pointer what lies outside its private pool: the
-    parameters and buffers, the kept bf16 copies of the weights and the
-    model's device constants. ``keep_alive`` holds them, so a graph never
-    reads freed memory; the predictor drops its graphs when a parameter
-    changes (``SSDPredictor._drop_stale``)."""
-
-    def __init__(self, predictor: "SSDPredictor", ih: int, iw: int, dtype: torch.dtype):
-        device = predictor.device
-        with torch.inference_mode():
-            self.static_in = torch.zeros((predictor.batch_size, ih, iw, 3), dtype=dtype,
-                                         device=device)
-        stream = predictor._capture_stream()
-        stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(stream):
-            for _ in range(WARMUP_CALLS):
-                predictor._run(self.static_in)
-            self.graph = torch.cuda.CUDAGraph()
-            before, lanes_before = nms_kernel.captured, decoder.captured_lanes
-            epilogues_before = epilogue_kernel.captured
-            with torch.cuda.graph(self.graph, stream=stream):
-                self.static_out = predictor._run(self.static_in)
-            # The NMS wrapper calls and lanes and the convolutions' epilogues
-            # the graph holds; each replay launches them.
-            self.nms_calls = nms_kernel.captured - before
-            self.nms_lanes = decoder.captured_lanes - lanes_before
-            self.epilogue_calls = epilogue_kernel.captured - epilogues_before
-        torch.cuda.current_stream(device).wait_stream(stream)
-        self.keep_alive = predictor._graph_inputs()
-
-    def __call__(self, host: torch.Tensor) -> torch.Tensor:
-        """Detections for a pinned host batch: the upload and the replay on
-        the current stream, then a copy of the static output (the next
-        replay overwrites it while this one may still be in flight)."""
-        with torch.inference_mode():
-            self.static_in.copy_(host, non_blocking=True)
-            self.graph.replay()
-            out = self.static_out.clone()
-        nms_kernel.replayed(self.nms_calls)
-        epilogue_kernel.replayed(self.epilogue_calls)
-        count("decode.lanes", self.nms_lanes)
-        return out
-
-
 class SSDPredictor:
     """Batched end-to-end SSD inference on the model's device.
 
@@ -247,12 +191,17 @@ class SSDPredictor:
             self._stream = torch.cuda.Stream(self.device)
         return self._stream
 
-    def _graph_inputs(self) -> List[torch.Tensor]:
-        """Every tensor outside a graph's pool that its kernels read."""
-        model = self.model
-        kept = [t for entry in model._cast_cache.values() for t in entry[2]]
-        consts = [t for t in model._constants(self.device).values() if t is not None]
-        return [*model.parameters(), *model.buffers(), *kept, *consts]
+    def _capture(self, ih: int, iw: int, dtype: torch.dtype) -> CapturedGraph:
+        """One input shape's cast to f32, resize, forward, decode and NMS
+        kernel as a CUDA graph over a static (batch, ih, iw, 3) input and a
+        static (batch, top_k, 6) output. The graph keeps the model's
+        ``graph_inputs``; the predictor drops its graphs when a parameter
+        changes (``_drop_stale``)."""
+        with torch.inference_mode():
+            static_in = torch.zeros((self.batch_size, ih, iw, 3), dtype=dtype,
+                                    device=self.device)
+        return CapturedGraph(self._run, static_in, self._capture_stream(),
+                             lambda: self.model.graph_inputs(self.device))
 
     def _drop_stale(self) -> None:
         """Drop every entry if a parameter or buffer changed since they were
@@ -277,7 +226,7 @@ class SSDPredictor:
             return run
         if self.device.type == "cuda":
             with span("predict.capture"):
-                run = _ShapeGraph(self, ih, iw, torch.from_numpy(np.empty(0, dtype)).dtype)
+                run = self._capture(ih, iw, torch.from_numpy(np.empty(0, dtype)).dtype)
             count("predict.graph_captures")
         else:
             run = self._eager

@@ -37,8 +37,12 @@ trace, on the clock of the card's kernels: a function-scope record, which
 the profiler does not mirror onto the card's timeline as it mirrors
 ``torch.profiler.record_function``. :func:`count` adds to a counter and is
 always on; while spans record it also notes the time, so :func:`counted`
-gives the counts of a window. :func:`counters` reads them, the kernels'
-module counters included. Spans run per request, batch or step, never per
+gives the counts of a window. :func:`counters` reads them. They are the
+program's only counters: the kernels' wrappers count their launches here
+too. Inside :func:`held` the counts this thread makes are kept apart
+instead, and :func:`count_all` counts them later: a CUDA graph holds its
+capture's counts and counts them again at each replay
+(``utils/cuda_graph.py``). Spans run per request, batch or step, never per
 box or pixel, and none stays open across a ``yield``.
 """
 
@@ -59,7 +63,8 @@ import numpy as np
 import torch
 
 __all__ = ["trace", "device_sync", "benchmark_fps", "time_cuda", "time_device", "time_calls",
-           "summary", "Span", "span", "spanned", "count", "counters", "counted", "spans", "recording"]
+           "summary", "Span", "span", "spanned", "count", "count_all", "counters", "counted",
+           "held", "spans", "recording"]
 
 # Cycles of torch.cuda._sleep that hold the card while time_device enqueues:
 # at least 10 ms at the H100's highest SM clock.
@@ -93,6 +98,7 @@ _noted: deque = deque(maxlen=RING_SIZE)  # (time_ns, name, n) while spans record
 _counts: Dict[str, int] = {}
 _counts_lock = threading.Lock()
 _recording = 0  # depth of active recording() contexts
+_holding = 0  # depth of active held() contexts, on every thread
 _local = threading.local()
 _profiler_enabled = torch.autograd._profiler_enabled
 
@@ -164,29 +170,56 @@ def spanned(name: str):
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to the counter ``name``; while spans record, also note when."""
+    """Add ``n`` to the counter ``name``; while spans record, also note when.
+    Inside :func:`held` on this thread, add it to the held counts instead."""
+    if _holding:
+        kept = getattr(_local, "held", None)
+        if kept:
+            kept[-1][name] = kept[-1].get(name, 0) + n
+            return
     with _counts_lock:
         _counts[name] = _counts.get(name, 0) + n
     if _recording or _profiler_enabled():
         _noted.append((time.perf_counter_ns(), name, n))
 
 
-def counters() -> Dict[str, int]:
-    """A snapshot of every counter: those of :func:`count` (among them the
-    epilogue kernel's ``conv_epilogue.launches``), and the kernels'
-    module counters under ``nms.launches``, ``nms.captured``,
-    ``jpeg_color.launches``, ``resize_linear.launches`` and
-    ``nvjpeg.batches`` (``nvjpegDecodeBatched`` calls), read from their
-    attributes."""
-    from ssd_keras_torch.kernels import jpeg_color, nms, resize
-    from ssd_keras_torch.native import jpeg
+def count_all(counts: Dict[str, int]) -> None:
+    """:func:`count` each of ``counts`` (``name -> n``) once: the counts a
+    :func:`held` body made, made again."""
+    for name, n in counts.items():
+        count(name, n)
 
+
+@contextlib.contextmanager
+def held():
+    """Yields a dict that takes, as ``name -> n``, every :func:`count` this
+    thread makes in the body (the innermost ``held`` where they nest), in
+    place of the counters and the noted window. Other threads count as
+    usual."""
+    global _holding
+    kept = getattr(_local, "held", None)
+    if kept is None:
+        kept = _local.held = []
+    counts: Dict[str, int] = {}
+    kept.append(counts)
     with _counts_lock:
-        out = dict(_counts)
-    out.update({"nms.launches": nms.launches, "nms.captured": nms.captured,
-                "jpeg_color.launches": jpeg_color.launches,
-                "resize_linear.launches": resize.launches, "nvjpeg.batches": jpeg.launches})
-    return out
+        _holding += 1
+    try:
+        yield counts
+    finally:
+        with _counts_lock:
+            _holding -= 1
+        kept.pop()
+
+
+def counters() -> Dict[str, int]:
+    """A snapshot of every counter :func:`count` made, among them the
+    kernels' launches (``nms.launches``, ``conv_epilogue.launches``,
+    ``jpeg_color.launches``, ``resize_linear.launches``) and
+    ``nvjpeg.batches`` (``nvjpegDecodeBatched`` calls). A counter nothing
+    has counted yet is absent."""
+    with _counts_lock:
+        return dict(_counts)
 
 
 def counted(start_ns: int = 0, end_ns: Optional[int] = None) -> Dict[str, int]:

@@ -18,8 +18,8 @@ the resize kernel against its plain version and the evaluator's card path
 against the host chain (batches, results, back-to-back decodes), and the
 convolutions' epilogue kernel against its plain version and PyTorch's ops
 (``chip_smoke.EPILOGUE_CASES``), counted in the predictor's graphs (29 an
-SSD300 forward, 45 an SSD-ResNet34 one) and giving the detections of the
-grad-enabled forward.
+SSD300 forward, 45 an SSD-ResNet34 one) and in the entry's captured forward
+(29), and giving the detections of the grad-enabled forward.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither JAX nor the JAX package, so it also runs on a machine with
@@ -51,12 +51,17 @@ from ssd_keras_torch.models import BatchNorm, ssd7_predictor_sizes, ssd300_predi
 from ssd_keras_torch.ops.nms import greedy_nms_mask, iou_suppression_mask, words_read
 from ssd_keras_torch.parallel import sharding as sh
 from ssd_keras_torch.parallel.dryrun import dryrun_multichip
-from ssd_keras_torch.predictor import WARMUP_CALLS, _ShapeGraph
 from ssd_keras_torch.utils import profiling
+from ssd_keras_torch.utils.cuda_graph import WARMUP_CALLS, CapturedGraph
 
 torch.set_num_threads(2)
 
 pytestmark = pytest.mark.cuda
+
+
+def _count(name):
+    """The program counter ``name`` (0 before its first count)."""
+    return profiling.counters().get(name, 0)
 
 
 @pytest.fixture()
@@ -84,10 +89,10 @@ _KERNEL_CASES = [
 def test_kernel_equals_plain(cuda, lanes, k, kind, d):
     boxes, valid = _lanes(0, lanes, k, kind)
     b, v = torch.from_numpy(boxes).to(cuda), torch.from_numpy(valid).to(cuda)
-    before = nms_kernel.launches
+    before = _count("nms.launches")
     got = nms_kernel.greedy_nms_mask_batched(b, v, 0.45, d)
     torch.cuda.synchronize()
-    assert nms_kernel.launches == before + 1
+    assert _count("nms.launches") == before + 1
     assert torch.equal(got, greedy_nms_mask(b, v, 0.45, d))
     assert torch.equal(got.cpu(), greedy_nms_mask(torch.from_numpy(boxes), torch.from_numpy(valid), 0.45, d))
 
@@ -96,10 +101,10 @@ def test_kernel_equals_plain(cuda, lanes, k, kind, d):
 def test_iou_mask_equals_plain_on_the_words_pass_b_reads(cuda, lanes, k, kind, d):
     boxes, valid = _lanes(1, lanes, k, kind)
     b, v = torch.from_numpy(boxes).to(cuda), torch.from_numpy(valid).to(cuda)
-    before = nms_kernel.launches
+    before = _count("nms.launches")
     got = nms_kernel.iou_mask(b, v, 0.45, d)
     torch.cuda.synchronize()
-    assert nms_kernel.launches == before  # not a launch of the main path
+    assert _count("nms.launches") == before  # not a launch of the main path
     read = words_read(v)
     assert torch.equal(got[read], iou_suppression_mask(b, v, 0.45, d)[read])
 
@@ -126,7 +131,7 @@ def test_scratch_is_kept_per_stream(cuda):
     index = cuda.index if cuda.index is not None else torch.cuda.current_device()
 
     def scratch_ptr():
-        return nms_kernel._scratches[index, nms_kernel._stream(index)].data_ptr()
+        return nms_kernel._scratches[index, nms_kernel.raw_stream(index)].data_ptr()
 
     ptrs = []
     for b, v in lanes:
@@ -189,10 +194,10 @@ def test_predictor_serves_on_card(cuda):
     model = _served_model(cuda)
     frames = [np.random.RandomState(i).randint(0, 256, (480, 640, 3), dtype=np.uint8)
               for i in range(3)]
-    before = nms_kernel.launches
+    before = _count("nms.launches")
     out = SSDPredictor(model, batch_size=2).predict(frames)
     # Two chunks, one launch each, after the eager warm-up before the capture.
-    assert nms_kernel.launches == before + WARMUP_CALLS + 2
+    assert _count("nms.launches") == before + WARMUP_CALLS + 2
     assert len(out) == 3
     for dets in out:
         assert dets.shape[1] == 6 and len(dets) > 0 and np.isfinite(dets).all()
@@ -217,35 +222,35 @@ def test_graph_cache_equals_eager_on_card(cuda):
             assert len(dets) > 0
             np.testing.assert_array_equal(dets, ref)
     assert list(cached._compiled) == [(300, 300, "|u1"), (480, 640, "|u1")]
-    assert all(isinstance(run, _ShapeGraph) for run in cached._compiled.values())
+    assert all(isinstance(run, CapturedGraph) for run in cached._compiled.values())
 
 
 def test_graph_replays_count_nms_launches(cuda):
-    """A capture records the NMS wrapper's call without counting a launch;
-    each replay counts the calls its graph holds."""
+    """A capture records the NMS wrapper's call and holds its count; each
+    replay counts the calls its graph holds."""
     model = _served_model(cuda)
     predictor = SSDPredictor(model, batch_size=2)
     frames = _frames(2)
-    before, captured = nms_kernel.launches, nms_kernel.captured
+    before = _count("nms.launches")
     predictor.predict(frames)
-    assert nms_kernel.captured == captured + 2  # one call in each shape's graph
-    assert nms_kernel.launches == before + 2 * WARMUP_CALLS + 4
-    assert [run.nms_calls for run in predictor._compiled.values()] == [1, 1]
-    before = nms_kernel.launches
+    assert _count("nms.launches") == before + 2 * WARMUP_CALLS + 4
+    # One call in each shape's graph.
+    assert [run.counts["nms.launches"] for run in predictor._compiled.values()] == [1, 1]
+    before = _count("nms.launches")
     predictor.predict(frames)
-    assert nms_kernel.launches == before + 4 and nms_kernel.captured == captured + 2
+    assert _count("nms.launches") == before + 4
 
 
 def test_graph_replays_count_decode_lanes(cuda):
     """An eager decode counts its lanes in ``decode.lanes``; a capture
-    counts none, and each replay counts the lanes its graph holds."""
+    holds them, and each replay counts the lanes its graph holds."""
     predictor = SSDPredictor(_served_model(cuda), batch_size=2)
     frames = _frames(2)
     before = profiling.counters().get("decode.lanes", 0)
     predictor.predict(frames)
     # Two shapes: one eager warm-up each, then two replays each, 2 x 20 lanes a call.
     assert profiling.counters()["decode.lanes"] == before + 40 * (2 * WARMUP_CALLS + 4)
-    assert [run.nms_lanes for run in predictor._compiled.values()] == [40, 40]
+    assert [run.counts["decode.lanes"] for run in predictor._compiled.values()] == [40, 40]
     before = profiling.counters()["decode.lanes"]
     predictor.predict(frames[:3])
     assert profiling.counters()["decode.lanes"] == before + 40 * 2
@@ -269,7 +274,7 @@ def test_ssd_r34_graphs_equal_its_eager_forward_and_fold_once(cuda):
               for i in range(3)]
     got = cached.predict(frames)
     assert profiling.counters()["model.bn_folded"] == folded + 29
-    assert [run.nms_lanes for run in cached._compiled.values()] == [160]
+    assert [run.counts["decode.lanes"] for run in cached._compiled.values()] == [160]
     for dets, ref in zip(got, EagerPredictor(model, batch_size=2).predict(frames)):
         np.testing.assert_array_equal(dets, ref)
     assert profiling.counters()["model.bn_folded"] == folded + 29
@@ -377,9 +382,9 @@ def test_predictor_takes_gray_and_rgba_frames_on_card(cuda):
     rgb = [np.repeat(gray[..., None], 3, -1), rgba[..., :3]]
     for resize_on_device in (True, False):
         predictor = SSDPredictor(model, batch_size=2, resize_on_device=resize_on_device)
-        before = nms_kernel.launches
+        before = _count("nms.launches")
         out = predictor.predict([gray, rgba])
-        assert nms_kernel.launches > before
+        assert _count("nms.launches") > before
         for dets, ref in zip(out, predictor.predict(rgb)):
             assert dets.shape[1] == 6 and len(dets) > 0 and np.isfinite(dets).all()
             np.testing.assert_array_equal(dets, ref)
@@ -650,12 +655,12 @@ def test_ssd512_on_card_equals_cpu(cuda, no_tf32):
     with torch.no_grad():
         y_card = build("training", cuda)(x[:1].to(cuda)).cpu()
         y_cpu = build("training", "cpu")(x[:1])
-        before = nms_kernel.launches
+        before = _count("nms.launches")
         det = build("inference", cuda)(x.to(cuda))
         torch.cuda.synchronize()
     assert y_cpu.shape == (1, 24564, 33)
     assert float((y_card - y_cpu).abs().max()) <= 1e-3
-    assert nms_kernel.launches == before + 1 and det.shape == (2, 200, 6)
+    assert _count("nms.launches") == before + 1 and det.shape == (2, 200, 6)
 
 
 def _eval_generator(images, labels):
@@ -674,9 +679,9 @@ def test_evaluator_on_card_equals_cpu_on_the_noisy_oracle(cuda):
     for name, device in (("card", cuda), ("cpu", torch.device("cpu"))):
         ev = Evaluator(StreamModel(torch.from_numpy(y).to(device)), 20,
                        _eval_generator(images, labels), "training", device=device)
-        before = nms_kernel.launches
+        before = _count("nms.launches")
         runs[name] = (ev(300, 300, 4, verbose=False), ev.prediction_results,
-                      nms_kernel.launches - before)
+                      _count("nms.launches") - before)
     assert runs["card"][2] == 4 and runs["cpu"][2] == 0
     assert 0 < runs["card"][0] < 1 and abs(runs["card"][0] - runs["cpu"][0]) <= 1e-6
     for got, expected in zip(runs["card"][1], runs["cpu"][1]):
@@ -723,13 +728,13 @@ def test_nvjpeg_decode_holds_to_pil(cuda):
     within phase 14's tolerances of PIL's decode, CMYK through PIL with
     PIL's shape, one nvJPEG call and one colour kernel launch."""
     from chip_smoke import held_to_pil, jpeg_fixtures, pil_decode
-    from ssd_keras_torch.kernels import jpeg_color as color_kernel
     from ssd_keras_torch.native import jpeg
 
     files = jpeg_fixtures()
-    before = (jpeg.launches, color_kernel.launches)
+    before = (_count("nvjpeg.batches"), _count("jpeg_color.launches"))
     got = jpeg.decode_jpeg_batch(list(files.values()))
-    assert (jpeg.launches - before[0], color_kernel.launches - before[1]) == (1, 1)
+    assert (_count("nvjpeg.batches") - before[0],
+            _count("jpeg_color.launches") - before[1]) == (1, 1)
     for (name, data), image in zip(files.items(), got):
         held_to_pil(name, image, pil_decode(data))
     assert got[list(files).index("cmyk")].shape[-1] == 4
@@ -758,10 +763,10 @@ def test_colour_kernel_equals_plain_on_edge_cases(cuda, case):
     from ssd_keras_torch.ops import jpeg_color
 
     planes, layout, out_bytes = jpeg_color_case(case)
-    before = color_kernel.launches
+    before = _count("jpeg_color.launches")
     got = color_kernel.ycc_to_rgb(planes.to(cuda), layout, out_bytes)
     torch.cuda.synchronize()
-    assert color_kernel.launches == before + 1
+    assert _count("jpeg_color.launches") == before + 1
     assert first_difference(got, jpeg_color.ycc_to_rgb(planes.to(cuda), layout, out_bytes),
                             layout) is None
     assert torch.equal(got.cpu(), jpeg_color.ycc_to_rgb(planes, layout, out_bytes))
@@ -810,7 +815,6 @@ def test_generator_decodes_jpeg_batches_on_card(cuda, tmp_path):
     nvJPEG call a batch, within phase 14's tolerances of the PIL path."""
     from chip_smoke import JPEG_COLOR_MAX, encode_jpeg, jpeg_scene
     from ssd_keras_torch.data import DataGenerator
-    from ssd_keras_torch.native import jpeg
 
     files, labels = [], []
     for k in range(6):
@@ -822,10 +826,10 @@ def test_generator_decodes_jpeg_batches_on_card(cuda, tmp_path):
     out = {}
     for device in ("cuda", None):
         gen = DataGenerator(filenames=files, labels=labels, jpeg_device=device)
-        before = jpeg.launches
+        before = _count("nvjpeg.batches")
         batches = gen.generate(batch_size=3, shuffle=False, returns=["processed_images"])
         out[device] = [next(batches)[0] for _ in range(2)]
-        out[str(device) + "_calls"] = jpeg.launches - before
+        out[str(device) + "_calls"] = _count("nvjpeg.batches") - before
     assert out["cuda_calls"] == 2 and out["None_calls"] == 0
     for a, b in zip(out["cuda"], out[None]):
         assert a.shape == b.shape == (3, 251, 333, 3)
@@ -848,10 +852,10 @@ def test_resize_kernel_equals_plain(cuda, src, dst, channels):
     from ssd_keras_torch.ops import resize as plain
 
     pixels, layout = _pack([_image(sum(src) + channels, *src, channels)])
-    before = resize_kernel.launches
+    before = _count("resize_linear.launches")
     got = resize_kernel.resize_linear_u8(pixels.to(cuda), layout, *dst)
     torch.cuda.synchronize()
-    assert resize_kernel.launches == before + 1 and got.is_cuda
+    assert _count("resize_linear.launches") == before + 1 and got.is_cuda
     assert torch.equal(got.cpu(), plain.resize_linear_u8(pixels, layout, *dst))
 
 
@@ -867,11 +871,11 @@ def test_resize_kernel_equals_plain_on_a_mixed_batch(cuda, dst):
     images = [_image(k, *((375, 500) if k % 3 else (500, 375)), 1 if k == 5 else 3)
               for k in range(8)]
     pixels, layout = _pack(images, gap=7)
-    before = resize_kernel.launches
+    before = _count("resize_linear.launches")
     got = resize_kernel.resize_linear_u8(pixels.to(cuda), layout, *dst)
     again = resize_kernel.resize_linear_u8(pixels.to(cuda), layout, *dst)  # the taps cached
     torch.cuda.synchronize()
-    assert resize_kernel.launches == before + 2
+    assert _count("resize_linear.launches") == before + 2
     want = plain.resize_linear_u8(pixels, layout, *dst)
     assert torch.equal(got.cpu(), want) and torch.equal(again.cpu(), want)
 
@@ -901,17 +905,16 @@ def test_card_path_batches_equal_the_host_chains(cuda, tmp_path):
     from test_torch_resize import GENERATOR_RETURNS, _assert_same_batches, _chain
 
     from ssd_keras_torch.data import DataGenerator
-    from ssd_keras_torch.kernels import resize as resize_kernel
 
     files, labels = _voc_jpegs(tmp_path, 16, gray=(4,))
     gen = DataGenerator(filenames=files, labels=labels, image_ids=list(range(16)),
                         verbose=False)
-    before = resize_kernel.launches
+    before = _count("resize_linear.launches")
     kw = dict(batch_size=8, shuffle=False, transformations=_chain(size=(512, 512)),
               returns=GENERATOR_RETURNS, keep_images_without_gt=True)
     card_it = gen._generate_on_card(kw["transformations"][-1], **kw)
     card = [next(card_it) for _ in range(2)]
-    assert resize_kernel.launches == before + 2
+    assert _count("resize_linear.launches") == before + 2
     assert all(b[0].is_cuda and b[0].shape == (8, 512, 512, 3) for b in card)
     host_it = gen.generate(**kw)
     host = [next(host_it) for _ in range(2)]
@@ -923,7 +926,6 @@ def test_evaluator_results_equal_on_the_card_path_and_the_host_chain(cuda, tmp_p
     mode): the same prediction results and mAP on both paths."""
     from ssd_keras_torch.data import DataGenerator
     from ssd_keras_torch.eval import Evaluator
-    from ssd_keras_torch.kernels import resize as resize_kernel
 
     files, labels = _voc_jpegs(tmp_path, 12)
     model, _ = ssd_300(SSDConfig.ssd300(), mode="inference", compute_dtype=torch.bfloat16,
@@ -935,10 +937,10 @@ def test_evaluator_results_equal_on_the_card_path_and_the_host_chain(cuda, tmp_p
                             eval_neutral=[[False] * len(b) for b in labels], verbose=False)
         if path == "host":
             gen._generate_on_card = lambda resize, **kw: gen.generate(**kw)
-        before = resize_kernel.launches
+        before = _count("resize_linear.launches")
         ev = Evaluator(model, 20, gen, model_mode="inference", device=cuda)
         out[path] = (ev(300, 300, 8, verbose=False), ev.prediction_results,
-                     resize_kernel.launches - before)
+                     _count("resize_linear.launches") - before)
     assert out["card"][2] == 2 and out["host"][2] == 0
     assert out["card"][0] == out["host"][0]
     assert out["card"][1] == out["host"][1] and sum(map(len, out["card"][1])) > 0
@@ -969,10 +971,10 @@ def test_decode_packed_back_to_back_equals_one_at_a_time(cuda):
     for (a, la), (t, lt) in zip(alone, together):
         assert torch.equal(la, lt) and torch.equal(a, t.cpu())
     files = jpeg_fixtures()
-    before = jpeg.launches
+    before = _count("nvjpeg.batches")
     assert jpeg.decode_packed([files["cmyk"], big[0]], cuda) is None
     assert jpeg.decode_packed(big[:2], cuda, accept=lambda h, w: w != 2000) is None
-    assert jpeg.launches == before
+    assert _count("nvjpeg.batches") == before
 
 
 # ---------------------------------------------------------------------------
@@ -990,9 +992,9 @@ def test_epilogue_kernel_equals_plain_and_pytorchs_ops(cuda, case):
 
     relu = EPILOGUE_CASES[case][3]
     y, bias, residual = epilogue_inputs(case, cuda)
-    ptr, before = y.data_ptr(), epilogue_kernel.launches
+    ptr, before = y.data_ptr(), _count("conv_epilogue.launches")
     got = epilogue_kernel.conv_epilogue(y, bias, residual, relu)
-    assert got is y and y.data_ptr() == ptr and epilogue_kernel.launches == before + 1
+    assert got is y and y.data_ptr() == ptr and _count("conv_epilogue.launches") == before + 1
     plain = plain_epilogue.conv_epilogue(epilogue_inputs(case, cuda)[0], bias, residual, relu)
     library = library_epilogue(epilogue_inputs(case, cuda)[0], bias, residual, relu)
     assert same_bits(got, plain) and same_bits(got, library)
@@ -1000,27 +1002,22 @@ def test_epilogue_kernel_equals_plain_and_pytorchs_ops(cuda, case):
 
 def _graph_epilogues(model, frames, batch_size):
     """Captures ``model``'s graphs through a predictor, then replays: the
-    epilogue calls each graph holds, and the kernel's launches and the
-    program counter over one more ``predict``."""
-    from ssd_keras_torch.kernels import conv_epilogue as epilogue_kernel
-
+    epilogue calls each graph holds, and the kernel's launches over one
+    more ``predict``."""
     predictor = SSDPredictor(model, batch_size=batch_size)
-    captured = epilogue_kernel.captured
     predictor.predict(frames)
-    calls = [run.epilogue_calls for run in predictor._compiled.values()]
-    assert epilogue_kernel.captured == captured + sum(calls)
-    before, counted = epilogue_kernel.launches, profiling.counters()[epilogue_kernel.COUNTER]
+    calls = [run.counts["conv_epilogue.launches"] for run in predictor._compiled.values()]
+    before = _count("conv_epilogue.launches")
     predictor.predict(frames)
     chunks = -(-len(frames) // batch_size)
-    return (calls, epilogue_kernel.launches - before,
-            profiling.counters()[epilogue_kernel.COUNTER] - counted, chunks)
+    return calls, _count("conv_epilogue.launches") - before, chunks
 
 
 def test_graphs_hold_and_count_the_epilogues_of_ssd300(cuda):
     frames = [np.random.RandomState(i).randint(0, 256, (480, 640, 3), dtype=np.uint8)
               for i in range(3)]
-    calls, launches, counted, chunks = _graph_epilogues(_served_model(cuda), frames, 2)
-    assert calls == [29] and launches == counted == 29 * chunks
+    calls, launches, chunks = _graph_epilogues(_served_model(cuda), frames, 2)
+    assert calls == [29] and launches == 29 * chunks
 
 
 def test_graphs_hold_and_count_the_epilogues_of_ssd_r34(cuda):
@@ -1031,8 +1028,25 @@ def test_graphs_hold_and_count_the_epilogues_of_ssd_r34(cuda):
                        img_width=400)
     frames = [np.random.RandomState(i).randint(0, 256, (480, 640, 3), dtype=np.uint8)
               for i in range(3)]
-    calls, launches, counted, chunks = _graph_epilogues(model, frames, 2)
-    assert calls == [45] and launches == counted == 45 * chunks
+    calls, launches, chunks = _graph_epilogues(model, frames, 2)
+    assert calls == [45] and launches == 45 * chunks
+
+
+def test_captured_forward_replays_count_the_epilogues(cuda):
+    """The entry's captured SSD300 forward holds its 29 convolutions'
+    epilogues and counts them at each replay, as the predictor's graphs do;
+    its output is the eager forward's, bit for bit."""
+    from ssd_keras_torch import graft_entry
+
+    model = graft_entry.entry_model(cuda)
+    x = torch.from_numpy(graft_entry.example_batch()).to(cuda)
+    captured = graft_entry.CapturedForward(graft_entry.forward, model, x)
+    assert captured.counts == {"conv_epilogue.launches": 29}
+    before = _count("conv_epilogue.launches")
+    out = captured(x)
+    assert _count("conv_epilogue.launches") == before + 29
+    with torch.inference_mode():
+        assert torch.equal(out, graft_entry.forward(model, x))
 
 
 def _unfused(model, monkeypatch):
@@ -1053,7 +1067,6 @@ def test_predictions_equal_the_grad_enabled_forwards(cuda, arch, monkeypatch):
     """Detections through the predictor's graphs (the epilogue kernel)
     equal, bit for bit, the eager predictor's with the model's forward run
     under autograd (PyTorch's ops after the same convolutions)."""
-    from ssd_keras_torch.kernels import conv_epilogue as epilogue_kernel
     from ssd_keras_torch.models import ssd_r34
 
     if arch == "ssd300":
@@ -1076,9 +1089,9 @@ def test_predictions_equal_the_grad_enabled_forwards(cuda, arch, monkeypatch):
     frames = [np.random.RandomState(i).randint(0, 256, (480, 640, 3), dtype=np.uint8)
               for i in range(3)]
     fused = SSDPredictor(model, batch_size=2).predict(frames)
-    before = epilogue_kernel.launches
+    before = _count("conv_epilogue.launches")
     unfused = EagerPredictor(_unfused(model, monkeypatch), batch_size=2).predict(frames)
-    assert epilogue_kernel.launches == before  # the grad-enabled forward launched none
+    assert _count("conv_epilogue.launches") == before  # the grad-enabled forward launched none
     assert sum(len(d) for d in fused) > 0
     for dets, ref in zip(fused, unfused):
         np.testing.assert_array_equal(dets, ref)

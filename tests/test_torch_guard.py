@@ -139,7 +139,8 @@ def test_package_reexports_import_without_jax_and_build_nothing():
         "from ssd_keras_torch.kernels import greedy_nms_mask_batched, build, nms, jpeg_color\n"
         "from ssd_keras_torch.ops import anchors, boxes, matching\n"
         "from ssd_keras_torch import native, bench, bench_all\n"
-        "assert callable(prefetch) and nms.launches == 0\n"
+        "from ssd_keras_torch.utils.profiling import counters\n"
+        "assert callable(prefetch) and not counters()\n"
         "assert len(bench_all.row_names()) == 27 and bench.BASELINE_FPS[8] == 49.0\n"
         "assert build.load_library.cache_info().currsize == 0\n"
         "assert build.load_nvjpeg_library.cache_info().currsize == 0\n"

@@ -38,6 +38,7 @@ from ssd_keras_torch.kernels import build
 from ssd_keras_torch.kernels import jpeg_color as color_kernel
 from ssd_keras_torch.native import jpeg
 from ssd_keras_torch.ops import jpeg_color
+from ssd_keras_torch.utils import profiling
 from ssd_keras_tpu import native as jax_native
 from ssd_keras_tpu.data import datasets as jax_datasets
 from ssd_keras_tpu.data.geometric import Resize as JaxResize
@@ -551,9 +552,10 @@ def test_colour_layout_is_checked(field, value, match):
 def test_colour_wrapper_dispatches_by_device():
     flat = torch.zeros(12, dtype=torch.uint8)
     layout = torch.tensor([[0, 0, 0, 0, 0, 3, 4, 0, 0]], dtype=torch.int64)
-    before = color_kernel.launches
+    before = profiling.counters().get("jpeg_color.launches", 0)
     assert torch.equal(color_kernel.ycc_to_rgb(flat, layout, 12), flat)
-    assert color_kernel.launches == before  # the CPU takes the plain version
+    # The CPU takes the plain version.
+    assert profiling.counters().get("jpeg_color.launches", 0) == before
     with pytest.raises(ValueError, match="device"):
         color_kernel.ycc_to_rgb(torch.empty(12, dtype=torch.uint8, device="meta"), layout, 12)
     with pytest.raises(ValueError, match="uint8"):
@@ -700,7 +702,7 @@ def test_kernel_launch_checks_its_table_and_output():
     table, tiles = color_kernel.tile_table(layout.numpy())
     assert tiles == len(color_kernel.bands(layout.numpy()))
     good, out = torch.from_numpy(table), torch.empty(out_bytes, dtype=torch.uint8)
-    before = color_kernel.launches
+    before = profiling.counters().get("jpeg_color.launches", 0)
     for bad in (good[:-1], good.int(), good.float()):
         with pytest.raises(ValueError, match="table"):
             color_kernel.launch(planes, bad, len(layout), tiles, out)
@@ -708,4 +710,4 @@ def test_kernel_launch_checks_its_table_and_output():
         color_kernel.launch(planes, good, len(layout), tiles + 1, out)
     with pytest.raises(ValueError, match="out"):
         color_kernel.launch(planes, good, len(layout), tiles, out.int())
-    assert color_kernel.launches == before
+    assert profiling.counters().get("jpeg_color.launches", 0) == before

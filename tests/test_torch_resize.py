@@ -120,9 +120,10 @@ def test_routes_to_linear_leaves_the_copy_and_the_2x_halving_out(src, dst, linea
 def test_wrapper_takes_cpu_tensors_to_the_plain_version_and_checks_its_inputs():
     images = [_image(7, 20, 30, 3), _image(8, 30, 20, 1)]
     pixels, layout = _pack(images)
-    before = resize_kernel.launches
+    before = profiling.counters().get("resize_linear.launches", 0)
     got = resize_kernel.resize_linear_u8(pixels, layout, 16, 24)
-    assert resize_kernel.launches == before  # the CPU launches nothing
+    # The CPU launches nothing.
+    assert profiling.counters().get("resize_linear.launches", 0) == before
     assert torch.equal(got, plain.resize_linear_u8(pixels, layout, 16, 24))
     with pytest.raises(ValueError, match="uint8"):
         resize_kernel.resize_linear_u8(pixels.to(torch.int16), layout, 16, 24)

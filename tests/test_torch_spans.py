@@ -2,10 +2,13 @@
 off by default and then a shared no-op that records nothing; on under
 ``recording()`` or a running ``torch.profiler``, with nesting, parents,
 inherited ids, child time and a bounded ring; counters always on, the
-kernels' module counters read by name; ``ssd.*`` events in the profiler's
+kernels' launches among them; ``ssd.*`` events in the profiler's
 trace. Then the span tree of the predictor, the evaluator and the trainer
 at tiny sizes on the CPU."""
 
+import ast
+import inspect
+import threading
 import time
 from collections import deque
 
@@ -20,7 +23,7 @@ from ssd_keras_torch.data import DataGenerator
 from ssd_keras_torch.data.device_aug import DeviceSSDAugmentation
 from ssd_keras_torch.encoder import pad_labels
 from ssd_keras_torch.eval.evaluator import Evaluator
-from ssd_keras_torch.kernels import jpeg_color, nms
+from ssd_keras_torch.kernels import conv_epilogue, jpeg_color, nms
 from ssd_keras_torch.kernels import resize as resize_kernel
 from ssd_keras_torch.native import jpeg
 from ssd_keras_torch.utils import profiling
@@ -95,10 +98,15 @@ def test_counters_are_always_on_and_read_the_kernel_counters():
     profiling.count("test.widgets")
     after = profiling.counters()
     assert after["test.widgets"] == before.get("test.widgets", 0) + 3
-    assert after["nms.launches"] == nms.launches and after["nms.captured"] == nms.captured
-    assert after["jpeg_color.launches"] == jpeg_color.launches
-    assert after["resize_linear.launches"] == resize_kernel.launches
-    assert after["nvjpeg.batches"] == jpeg.launches
+    # Each kernel's wrapper counts its launches through ``count`` under the
+    # name the benchmark and the tools read, and nowhere else.
+    for module, name in [(nms, "nms.launches"), (jpeg_color, "jpeg_color.launches"),
+                         (resize_kernel, "resize_linear.launches"), (jpeg, "nvjpeg.batches"),
+                         (conv_epilogue, "conv_epilogue.launches")]:
+        tree = ast.parse(inspect.getsource(module))
+        named = {node.args[0].value for node in ast.walk(tree) if isinstance(node, ast.Call)
+                 and isinstance(node.func, ast.Name) and node.func.id == "count"}
+        assert named == {name}, module.__name__
 
 
 def test_counted_holds_only_counts_made_while_spans_record():
@@ -111,6 +119,44 @@ def test_counted_holds_only_counts_made_while_spans_record():
         assert profiling.counted()["test.window"] == 5
         assert profiling.counted(t0, t1) == {"test.window": 2}
         assert profiling.counted(t1) == {"test.window": 3}
+
+
+def test_counts_inside_held_reach_neither_the_counters_nor_the_window_but_other_threads_do():
+    before = profiling.counters()
+    with profiling.recording():
+        with profiling.held() as kept:
+            profiling.count("test.held", 2)
+            with profiling.held() as inner:  # the innermost takes them
+                profiling.count("test.held", 7)
+            profiling.count("test.held.other")
+            worker = threading.Thread(target=profiling.count, args=("test.held.thread", 4))
+            worker.start()
+            worker.join(timeout=10)
+            assert not worker.is_alive()
+        profiling.count("test.held.after")
+        window = profiling.counted()
+    after = profiling.counters()
+    assert kept == {"test.held": 2, "test.held.other": 1} and inner == {"test.held": 7}
+    assert after.get("test.held", 0) == before.get("test.held", 0)
+    assert after.get("test.held.other", 0) == before.get("test.held.other", 0)
+    assert after["test.held.thread"] == before.get("test.held.thread", 0) + 4
+    assert window == {"test.held.thread": 4, "test.held.after": 1}
+
+
+def test_count_all_adds_each_held_count_once_a_call_and_notes_it():
+    with profiling.held() as kept:
+        profiling.count("test.replayed.lanes", 20)
+        profiling.count("test.replayed.launches")
+    before = profiling.counters()
+    with profiling.recording():
+        t0 = time.perf_counter_ns()
+        for _ in range(3):
+            profiling.count_all(kept)
+        window = profiling.counted(t0)
+    after = profiling.counters()
+    assert window == {"test.replayed.lanes": 60, "test.replayed.launches": 3}
+    assert after["test.replayed.lanes"] == before.get("test.replayed.lanes", 0) + 60
+    assert after["test.replayed.launches"] == before.get("test.replayed.launches", 0) + 3
 
 
 def test_a_running_profiler_turns_spans_on_and_puts_them_in_its_trace():
