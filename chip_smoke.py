@@ -23,9 +23,9 @@ Phases, in order; the first failure raises and the script exits non-zero:
    the CPU, at bf16 (finite, in-frame output), then 'inference_fast', then
    bf16 at batch 1. The
    program's NMS launch counter (``utils.profiling.counters()``) is read
-   before and after; it must have moved. So is the convolutions' epilogue
-   counter, which must move by 29 a forward. The path must not make the
-   host wait for the device.
+   before and after; it must have moved. So are the convolutions' epilogue
+   counters, which must move by 29 a forward, 4 of them pooled. The path
+   must not make the host wait for the device.
 5. Serving through ``SSDPredictor``'s per-shape CUDA graphs (the cast,
    resize, forward, decode and NMS kernel captured once a shape): (a) it
    answers 8 frames of 300x300, 5 of 480x640 and 1 frame, all uint8, the
@@ -33,7 +33,8 @@ Phases, in order; the first failure raises and the script exits non-zero:
    eager path's (``EagerPredictor``; bit-equal expected, phase 4's
    SCORE_TOL and BOX_TOL at most); (c) replayed, the requests make no host
    synchronisation outside the predictor's read and count one NMS launch
-   and each graph's 29 epilogue launches a replay; (d) with
+   and each graph's 29 epilogue launches, 4 pooled, a replay (the graph
+   holds those counts); (d) with
    ``max_compiled_shapes=2`` a third shape (360x480) evicts the least
    recent graph, which is captured again when its shape returns, and a
    reload of other weights drops the graphs, every answer equal to the
@@ -233,7 +234,7 @@ Phases, in order; the first failure raises and the script exits non-zero:
    it on the class probabilities and the box offsets, the anchors equal.
    The path launches no NMS or colour kernel (the convolutions' epilogue,
    phase 18, runs in its no-grad forward: the graph holds its 29 launches'
-   counts and a replay counts them). Its line: eager and replay ms
+   counts, 4 of them pooled, and a replay counts them). Its line: eager and replay ms
    (CUDA events, median of 5 x 20 calls), the eager call's device time, the
    graph pool's MB and the card.
 
@@ -245,10 +246,19 @@ Phases, in order; the first failure raises and the script exits non-zero:
    line: each case's profiler time, whole calls, the plain version's and
    PyTorch's three ops (``library_ms``), the bound of its bytes at 3.35
    TB/s and the share of it (``EPILOGUE_TARGET_SHARE`` on maps of
-   ``EPILOGUE_TARGET_BYTES`` or more, reported, not gated); the device time
-   of a b8 no-grad forward of SSD-ResNet34 at 1200x1200 and of SSD300 with
-   the kernel and with PyTorch's ops in its place, and the launches a
-   forward (45 and 29, gated).
+   ``EPILOGUE_TARGET_BYTES`` or more, reported, not gated). Then the pooled
+   kernel on ``POOL_CASES`` (SSD-ResNet34's b8 stem map into its 3x3/2
+   pool, SSD300's b8 conv1_2, conv2_2, conv3_3 (ceil) and conv5_3 (3x3/1)
+   maps, and edge cases), equal bit for bit to its plain version, to
+   PyTorch's add_ / relu_ / max_pool2d and to the epilogue kernel then
+   max_pool2d, the input left as it was, each call counted once in
+   ``conv_epilogue.launches`` and ``conv_epilogue.pooled``; the same times
+   beside the bound of the map read once and the pooled map written once
+   (``POOL_TARGET_SHARE``, reported, not gated). Last the device time of a
+   b8 no-grad forward of SSD-ResNet34 at 1200x1200 and of SSD300 with the
+   kernels, with the epilogue kernel then PyTorch's pool in place of the
+   pooled kernel, and with PyTorch's ops in place of both, and the
+   launches a forward (45 and 29, of them pooled 1 and 4, gated).
 
 It prints JSON lines (timings, then the kernels line), then as its last line
 ``{"ok": true, "device": {...}}``. With no CUDA device it raises before
@@ -306,6 +316,7 @@ from ssd_keras_torch.kernels import jpeg_color as jpeg_color_kernel
 from ssd_keras_torch.kernels import nms as nms_kernel
 from ssd_keras_torch.models import ssd300_predictor_sizes
 from ssd_keras_torch.ops import jpeg_color
+from ssd_keras_torch.ops.conv_epilogue import MaxPool
 from ssd_keras_torch.ops.nms import greedy_nms_mask, iou_suppression_mask, words_read
 from ssd_keras_torch.parallel import sharding as sh
 from ssd_keras_torch.parallel.dryrun import dp_check_rank
@@ -615,6 +626,39 @@ EPILOGUE_LAUNCH_GAP_MS = 0.003
 EPILOGUE_LIBRARY_NOTE = ("library_ms: PyTorch's add_ of the (1, C, 1, 1) bias, add_ of the "
                          "residual and relu_ on the same map, the three passes the kernel "
                          "replaces")
+# The pooled epilogue's cases: SSD-ResNet34's b8 stem (conv1's 600x600x64
+# into the 3x3/2 pool), SSD300's b8 conv1_2, conv2_2 and conv3_3 into the
+# 2x2/2 'SAME' pools (conv3_3's 75 -> 38 under ceil_mode) and conv5_3 into
+# the 3x3/1 pool5; then fp16, float32, 3 channels, a map one element off a
+# 16-byte boundary, 3x3/1 unpadded, 3x3/2 unpadded with a ragged last
+# window (ceil_mode), one pixel, and a map of signed zeros and
+# negatives only under a bias of -0.0 (the ReLU's zeros). NaN, +-0.0 and
+# +-inf planted. (name: (N, C, H, W), dtype, pool, elements before the
+# map).
+POOL_CASES = {
+    "r34_stem": ((8, 64, 600, 600), "bfloat16", MaxPool(3, 2, 1), 0),
+    "ssd300_conv1_2": ((8, 64, 300, 300), "bfloat16", MaxPool(2, 2, 0, True), 0),
+    "ssd300_conv2_2": ((8, 128, 150, 150), "bfloat16", MaxPool(2, 2, 0, True), 0),
+    "ssd300_conv3_3": ((8, 256, 75, 75), "bfloat16", MaxPool(2, 2, 0, True), 0),
+    "ssd300_conv5_3": ((8, 512, 19, 19), "bfloat16", MaxPool(3, 1, 1), 0),
+    "fp16_ceil": ((2, 64, 37, 41), "float16", MaxPool(2, 2, 0, True), 0),
+    "f32_3x3_2": ((2, 64, 37, 41), "float32", MaxPool(3, 2, 1), 0),
+    "three_channels": ((2, 3, 33, 35), "bfloat16", MaxPool(3, 2, 1, True), 0),
+    "misaligned_bf16": ((2, 64, 19, 19), "bfloat16", MaxPool(2, 2, 0, True), 1),
+    "3x3_1_unpadded": ((2, 24, 9, 10), "bfloat16", MaxPool(3, 1), 0),
+    "3x3_2_unpadded_ceil": ((2, 24, 9, 10), "bfloat16", MaxPool(3, 2, 0, True), 0),
+    "one_pixel": ((1, 486, 1, 1), "bfloat16", MaxPool(3, 1, 1), 0),
+    "signed_zeros": ((2, 64, 17, 19), "bfloat16", MaxPool(3, 2, 1), 0),
+}
+# Pooled epilogues a no-grad forward makes: SSD300's conv1_2, conv2_2,
+# conv3_3 and conv5_3, SSD-ResNet34's conv1.
+POOLED_A_FORWARD = dict(ssd300=4, ssd_r34=1)
+# The epilogue kernels' counters: every launch, and the pooled ones.
+EPILOGUE_COUNTERS = ("conv_epilogue.launches", "conv_epilogue.pooled")
+POOL_TARGET_SHARE = 0.70
+POOL_LIBRARY_NOTE = ("library_ms: PyTorch's add_ of the (1, C, 1, 1) bias, relu_ and "
+                     "max_pool2d; unfused_ms: the epilogue kernel with its ReLU in place, then "
+                     "max_pool2d (the path before the pooled kernel)")
 
 
 def program_count(name):
@@ -943,15 +987,16 @@ def graph_pool_bytes(graph):
 
 def serving_phase(bf16, state, device, card):
     """Phase 5: ``SSDPredictor`` through its per-shape CUDA graphs. Returns
-    (JSON lines, NMS launches of the first requests, launches by part, the
-    epilogue's launches of the first requests and of their replays)."""
+    (JSON lines, NMS launches of the first requests, launches by part, and
+    for each of ``EPILOGUE_COUNTERS`` its count over the first requests and
+    over their replays)."""
     predictor = SSDPredictor(bf16, batch_size=BATCH)
     requests = serving_requests(SEED + 2, [("8 x 300x300", 8, (300, 300)),
                                            ("5 x 480x640", 5, (480, 640)),
                                            ("1 x 300x300", 1, (300, 300))])
     # (a) The requests, the first of each shape capturing its graph.
     nms0 = program_count("nms.launches")
-    epilogues0 = program_count("conv_epilogue.launches")
+    epilogues0 = {k: program_count(k) for k in EPILOGUE_COUNTERS}
     answers = []
     for name, images in requests:
         new_shape = (*images[0].shape[:2], "|u1") not in predictor._compiled
@@ -969,7 +1014,7 @@ def serving_phase(bf16, state, device, card):
             f"{'capturing its shape' if new_shape else 'replayed'}), "
             f"{sum(len(d) for d in out)} detections")
     serve_launches = program_count("nms.launches") - nms0
-    epilogues = dict(serving_requests=program_count("conv_epilogue.launches") - epilogues0)
+    epilogues = {k: dict(serving_requests=program_count(k) - n) for k, n in epilogues0.items()}
     if serve_launches < len(requests):
         raise AssertionError(f"serving launched the NMS kernel {serve_launches} times")
     if list(predictor._compiled) != [(480, 640, "|u1"), (300, 300, "|u1")]:
@@ -984,25 +1029,29 @@ def serving_phase(bf16, state, device, card):
     # (c) Replays: NMS launches counted, no host sync outside the read.
     launches = {}
     nms0 = program_count("nms.launches")
-    epilogues0 = program_count("conv_epilogue.launches")
+    epilogues0 = {k: program_count(k) for k in EPILOGUE_COUNTERS}
     with sync_checked_outside_the_predictor_read():
         for (name, images), out in zip(requests, answers):
             same_answers(f"request {name}, replayed", predictor.predict(images), out)
     launches["serving_graph_replays"] = program_count("nms.launches") - nms0
-    epilogues["serving_graph_replays"] = program_count("conv_epilogue.launches") - epilogues0
+    for k, n in epilogues0.items():
+        epilogues[k]["serving_graph_replays"] = program_count(k) - n
     if launches["serving_graph_replays"] != len(requests):
         raise AssertionError(f"{len(requests)} replays counted "
                              f"{launches['serving_graph_replays']} NMS launches")
-    held = {hw: graph.counts.get("conv_epilogue.launches")
+    a_forward = dict(zip(EPILOGUE_COUNTERS, (EPILOGUES_A_FORWARD["ssd300"],
+                                             POOLED_A_FORWARD["ssd300"])))
+    held = {hw: {k: graph.counts.get(k) for k in EPILOGUE_COUNTERS}
             for hw, graph in predictor._compiled.items()}
-    expected = len(requests) * EPILOGUES_A_FORWARD["ssd300"]
-    if (set(held.values()) != {EPILOGUES_A_FORWARD["ssd300"]}
-            or epilogues["serving_graph_replays"] != expected):
-        raise AssertionError(f"graphs hold {held} epilogues; {len(requests)} replays counted "
-                             f"{epilogues['serving_graph_replays']}, expected {expected}")
+    replayed = {k: v["serving_graph_replays"] for k, v in epilogues.items()}
+    expected = {k: len(requests) * n for k, n in a_forward.items()}
+    if any(counts != a_forward for counts in held.values()) or replayed != expected:
+        raise AssertionError(f"graphs hold the counts {held}, expected {a_forward}; "
+                             f"{len(requests)} replays counted {replayed}, expected {expected}")
     log("graph replays: no host synchronisation outside the predictor's read "
         "(torch.cuda sync debug mode 'error'); one NMS launch and each graph's "
-        f"{EPILOGUES_A_FORWARD['ssd300']} epilogue launches counted a replay")
+        f"{EPILOGUES_A_FORWARD['ssd300']} epilogue launches, "
+        f"{POOLED_A_FORWARD['ssd300']} of them pooled, counted a replay")
 
     # (d) Two shapes at most: a third evicts the least recent, which is made
     # again when it comes back; then other weights are loaded.
@@ -3101,14 +3150,15 @@ def entry_phase(card):
     captured = graft_entry.CapturedForward(forward, model, x)
     reserved_delta = torch.cuda.memory_reserved() - reserved
     pool = graph_pool_bytes(captured.graph)
-    epilogues0 = program_count("conv_epilogue.launches")
+    epilogues0 = {k: program_count(k) for k in EPILOGUE_COUNTERS}
     replay = captured()
     torch.cuda.synchronize()
-    replay_epilogues = program_count("conv_epilogue.launches") - epilogues0
-    if (captured.counts != {"conv_epilogue.launches": EPILOGUES_A_FORWARD["ssd300"]}
-            or replay_epilogues != EPILOGUES_A_FORWARD["ssd300"]):
+    replay_epilogues = {k: program_count(k) - n for k, n in epilogues0.items()}
+    a_forward = dict(zip(EPILOGUE_COUNTERS, (EPILOGUES_A_FORWARD["ssd300"],
+                                             POOLED_A_FORWARD["ssd300"])))
+    if captured.counts != a_forward or replay_epilogues != a_forward:
         raise AssertionError(f"entry: the graph holds the counts {captured.counts}, and its "
-                             f"replay counted {replay_epilogues} epilogue launches")
+                             f"replay counted {replay_epilogues}, expected {a_forward}")
     if not torch.equal(replay, y):
         raise AssertionError(f"entry: the graph replay differs from the eager call, max |diff| "
                              f"{float((replay - y).abs().max())}")
@@ -3145,7 +3195,8 @@ def entry_phase(card):
                       "back (replay: graph.replay() alone)",
                 graph_pool_mb=pool / 2 ** 20 if isinstance(pool, int) else pool,
                 reserved_delta_mb=reserved_delta / 2 ** 20, nms_or_colour_launches=0,
-                replay_epilogue_launches=replay_epilogues, card=card)
+                replay_epilogue_launches=replay_epilogues["conv_epilogue.launches"],
+                replay_pooled_launches=replay_epilogues["conv_epilogue.pooled"], card=card)
     log(f"phase 17: entry eager {eager_ms['median']:.3f} ms, replay {replay_ms['median']:.3f} "
         f"ms (bit-equal), pool {line['graph_pool_mb']} MB, bf16 vs f32 {rel}")
     del captured
@@ -3158,6 +3209,27 @@ def epilogue_inputs(case, device, seed=SEED):
     seed): normal values (sd 2) with NaN, +-0.0 and +-inf planted, each map
     placed its case's offset into a buffer of its own."""
     shape, dtype, residual, _, layout, offset = EPILOGUE_CASES[case]
+    return planted_inputs(shape, dtype, residual, layout, offset, device, seed)
+
+
+def pool_inputs(case, device, seed=SEED):
+    """``y`` and ``bias`` of ``POOL_CASES[case]`` on ``device``, made as
+    ``epilogue_inputs`` makes them, channels_last; for ``signed_zeros`` a
+    map of +-0.0 and negative values and a bias of -0.0, so that the
+    ReLU's input is -0.0, +0.0 or negative in every window."""
+    shape, dtype, _, offset = POOL_CASES[case]
+    y, bias, _ = planted_inputs(shape, dtype, False, "channels_last", offset, device, seed)
+    if case == "signed_zeros":
+        gen = torch.Generator(device=device).manual_seed(seed)
+        pick = torch.randint(0, 3, y.shape, generator=gen, device=device)
+        values = torch.tensor([-0.0, 0.0, -1.5], dtype=y.dtype, device=device)
+        y.copy_(values[pick])
+        bias.fill_(-0.0)
+    return y, bias
+
+
+def planted_inputs(shape, dtype, residual, layout, offset, device, seed):
+    """``epilogue_inputs``' tensors for a map of ``shape`` and ``dtype``."""
     n, c, h, w = shape
     dtype = getattr(torch, dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -3183,6 +3255,18 @@ def library_epilogue(y, bias, residual, relu):
     if residual is not None:
         y.add_(residual)
     return y.relu_() if relu else y
+
+
+def library_pool(y, bias, pool):
+    """PyTorch's ops: the bias's broadcast add_ and relu_ in place, then
+    ``pool`` (F.max_pool2d)."""
+    return pool(library_epilogue(y, bias, None, True))
+
+
+def unfused_pool(y, bias, pool):
+    """The path before the pooled kernel: the epilogue kernel with its ReLU
+    in place, then ``pool`` (F.max_pool2d)."""
+    return pool(epilogue_kernel.conv_epilogue(y, bias, None, True))
 
 
 def same_bits(a, b):
@@ -3240,26 +3324,98 @@ def epilogue_part(case, device):
                               or share is None else share >= EPILOGUE_TARGET_SHARE))
 
 
+def pool_part(case, device):
+    """One pooled case of phase 18: the pooled kernel against its plain
+    version, PyTorch's ops and the epilogue kernel then PyTorch's pool on
+    the card, bit for bit (raising otherwise), and their times beside the
+    bound of the bytes it needs: the map read once, the pooled map written
+    once."""
+    from ssd_keras_torch.ops import conv_epilogue as plain_epilogue
+
+    shape, dtype, pool, offset = POOL_CASES[case]
+    y, bias = pool_inputs(case, device)
+    launches0, pooled0 = (program_count(k) for k in EPILOGUE_COUNTERS)
+    got = epilogue_kernel.conv_epilogue_pool(y, bias, pool)
+    counted = (program_count("conv_epilogue.launches") - launches0,
+               program_count("conv_epilogue.pooled") - pooled0)
+    plain = plain_epilogue.conv_epilogue_pool(y, bias, pool)
+    library = library_pool(pool_inputs(case, device)[0], bias, pool)
+    unfused = unfused_pool(pool_inputs(case, device)[0], bias, pool)
+    torch.cuda.synchronize()
+    if counted != (1, 1):
+        raise AssertionError(f"pooled epilogue on {case} counted {counted}, expected (1, 1)")
+    if not (got.is_contiguous(memory_format=torch.channels_last)
+            and same_bits(got, plain) and same_bits(got, library) and same_bits(got, unfused)
+            and same_bits(y, pool_inputs(case, device)[0])):
+        bad = (got.float() != plain.float()) & ~(got.isnan() & plain.isnan())
+        raise AssertionError(f"pooled epilogue kernel != plain on {case}: {int(bad.sum())} "
+                             f"elements differ, library equal: {same_bits(got, library)}, "
+                             f"unfused equal: {same_bits(got, unfused)}")
+    map_bytes = y.numel() * y.element_size()
+    nbytes = map_bytes + got.numel() * got.element_size() + bias.numel() * bias.element_size()
+    bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    calls = 20 if map_bytes < 1e8 else 5
+
+    def kernel():
+        epilogue_kernel.conv_epilogue_pool(y, bias, pool)
+
+    call_ms = time_calls(kernel, "cuda", iters=calls)
+    span_ms = kernel_span_ms(kernel, "bias_act_pool", calls=calls)
+    floor_ms = call_ms["median"] - EPILOGUE_LAUNCH_GAP_MS
+    if span_ms is not None and span_ms < floor_ms:
+        span_ms = kernel_span_ms(kernel, "bias_act_pool", calls=calls)
+        if span_ms is not None and span_ms < floor_ms:
+            span_ms = None
+    scratch = y.clone()
+    plain_ms = time_calls(lambda: plain_epilogue.conv_epilogue_pool(y, bias, pool), "cuda",
+                          iters=calls)
+    library_ms = time_calls(lambda: library_pool(scratch, bias, pool), "cuda", iters=calls)
+    unfused_ms = time_calls(lambda: unfused_pool(scratch, bias, pool), "cuda", iters=calls)
+    share = bound_ms / span_ms if span_ms else None
+    main_path = case.startswith(("r34_", "ssd300_"))
+    return dict(case=case, shape=list(shape), dtype=dtype, pool=list(pool),
+                offset=offset, out_shape=list(got.shape), bytes=nbytes, bit_equal=True,
+                kernel_span_ms=span_ms if span_ms is not None else "not measured",
+                call_ms=call_ms["median"], plain_ms=plain_ms["median"],
+                library_ms=library_ms["median"], unfused_ms=unfused_ms["median"],
+                bound_ms=bound_ms, bound_by="bytes", roofline_share=share,
+                meets_target=(None if not main_path or map_bytes < EPILOGUE_TARGET_BYTES
+                              or share is None else share >= POOL_TARGET_SHARE))
+
+
+@contextlib.contextmanager
+def epilogues_replaced(epilogue, pooled):
+    """The model's epilogue calls go to ``epilogue`` and ``pooled`` inside
+    the block."""
+    kept = epilogue_kernel.conv_epilogue, epilogue_kernel.conv_epilogue_pool
+    epilogue_kernel.conv_epilogue, epilogue_kernel.conv_epilogue_pool = epilogue, pooled
+    try:
+        yield
+    finally:
+        epilogue_kernel.conv_epilogue, epilogue_kernel.conv_epilogue_pool = kept
+
+
 def epilogue_forward_ms(model, x, device):
     """Device ms of one no-grad forward of ``model`` on ``x``: with the
-    epilogue kernel, and with PyTorch's three ops in its place (the
-    parent's passes, the same convolutions); and the kernel's launches a
-    forward."""
+    epilogue kernels, pooled where a convolution feeds only a pool; with
+    the epilogue kernel then PyTorch's pool in place of the pooled kernel
+    (the path before it); and with PyTorch's ops in place of both (the
+    same convolutions); and the kernels' launches a forward."""
     forward = model.predictions if hasattr(model, "predictions") else model
     # Some 200 launches a forward: three forwards keep the launch queue
     # short of its ~1000 entries.
     fused_ms = time_calls(lambda: forward(x), device, iters=3)
-    epilogues0 = program_count("conv_epilogue.launches")
+    launches0, pooled0 = (program_count(k) for k in EPILOGUE_COUNTERS)
     forward(x)
-    launches = program_count("conv_epilogue.launches") - epilogues0
-    kernel = epilogue_kernel.conv_epilogue
-    epilogue_kernel.conv_epilogue = library_epilogue
-    try:
+    launches = program_count("conv_epilogue.launches") - launches0
+    pooled = program_count("conv_epilogue.pooled") - pooled0
+    with epilogues_replaced(epilogue_kernel.conv_epilogue, unfused_pool):
+        unpooled_ms = time_calls(lambda: forward(x), device, iters=3)
+    with epilogues_replaced(library_epilogue, library_pool):
         library_ms = time_calls(lambda: forward(x), device, iters=3)
-    finally:
-        epilogue_kernel.conv_epilogue = kernel
-    return dict(fused_ms=fused_ms["median"], library_ms=library_ms["median"],
-                launches_per_forward=launches)
+    return dict(fused_ms=fused_ms["median"], unpooled_ms=unpooled_ms["median"],
+                library_ms=library_ms["median"], launches_per_forward=launches,
+                pooled_per_forward=pooled)
 
 
 def epilogue_phase(card):
@@ -3271,6 +3427,8 @@ def epilogue_phase(card):
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     cases = [epilogue_part(case, device) for case in EPILOGUE_CASES]
+    torch.cuda.empty_cache()
+    pools = [pool_part(case, device) for case in POOL_CASES]
     torch.cuda.empty_cache()
     x = torch.from_numpy(np.random.RandomState(SEED + 18).randint(
         0, 256, (BATCH, 1200, 1200, 3)).astype(np.float32)).to(device)
@@ -3287,17 +3445,25 @@ def epilogue_phase(card):
     got = {k: v["launches_per_forward"] for k, v in forwards.items()}
     if got != expected:
         raise AssertionError(f"epilogue launches a forward {got}, expected {expected}")
-    missed = [c["case"] for c in cases if c["meets_target"] is False]
-    line = dict(metric="conv_epilogue_ms", cases=cases, forwards=forwards,
+    pooled = {k: v["pooled_per_forward"] for k, v in forwards.items()}
+    expected = dict(ssd_r34_1200_b8=POOLED_A_FORWARD["ssd_r34"],
+                    ssd300_b8=POOLED_A_FORWARD["ssd300"])
+    if pooled != expected:
+        raise AssertionError(f"pooled epilogues a forward {pooled}, expected {expected}")
+    missed = [c["case"] for c in cases + pools if c["meets_target"] is False]
+    line = dict(metric="conv_epilogue_ms", cases=cases, pooled_cases=pools, forwards=forwards,
                 target=f"{EPILOGUE_TARGET_SHARE:.0%} of 3.35 TB/s on maps of "
-                       f"{EPILOGUE_TARGET_BYTES / 1e6:g} MB and more",
+                       f"{EPILOGUE_TARGET_BYTES / 1e6:g} MB and more, "
+                       f"{POOL_TARGET_SHARE:.0%} pooled",
                 below_target=missed, library_note=EPILOGUE_LIBRARY_NOTE,
-                seconds=time.perf_counter() - t0, card=card)
-    log(f"phase 18: epilogue kernel == plain == PyTorch's ops on {len(cases)} cases; "
-        + ", ".join(f"{c['case']} {c['roofline_share'] or 0:.0%}" for c in cases[:13])
+                pool_library_note=POOL_LIBRARY_NOTE, seconds=time.perf_counter() - t0, card=card)
+    log(f"phase 18: epilogue kernel == plain == PyTorch's ops on {len(cases)} cases, pooled "
+        f"on {len(pools)}; "
+        + ", ".join(f"{c['case']} {c['roofline_share'] or 0:.0%}" for c in cases[:13] + pools[:5])
         + f" of the byte bound; below target: {missed or 'none'}; forwards {forwards}")
     main = next(c for c in cases if c["case"] == "r34_conv1")
-    record = dict(forwards=got, main=main, line=line)
+    pool_main = next(c for c in pools if c["case"] == "r34_stem")
+    record = dict(forwards=got, pooled=pooled, main=main, pool_main=pool_main, line=line)
     return line, record
 
 
@@ -3335,33 +3501,40 @@ def main():
     fast = model_for(state, "inference_fast", torch.float32, device)
 
     nms0 = program_count("nms.launches")
-    epilogues0 = program_count("conv_epilogue.launches")
-    epilogues = []
+    epilogues0, pooled0 = (program_count(k) for k in EPILOGUE_COUNTERS)
+    epilogues, pooled = [], []
+
+    def counted_epilogues():
+        epilogues.append(program_count("conv_epilogue.launches") - epilogues0)
+        pooled.append(program_count("conv_epilogue.pooled") - pooled0)
+
     det_f32 = f32(x)
     torch.cuda.synchronize()
     after_f32 = program_count("nms.launches") - nms0
-    epilogues.append(program_count("conv_epilogue.launches") - epilogues0)
+    counted_epilogues()
     det_bf16 = bf16(x)
     torch.cuda.synchronize()
     after_bf16 = program_count("nms.launches") - nms0
-    epilogues.append(program_count("conv_epilogue.launches") - epilogues0)
+    counted_epilogues()
     det_fast = fast(x)
     torch.cuda.synchronize()
     after_fast = program_count("nms.launches") - nms0
-    epilogues.append(program_count("conv_epilogue.launches") - epilogues0)
+    counted_epilogues()
     det_one = bf16(x[:1])  # batch 1: the per-class gathers come back strided
     torch.cuda.synchronize()
     main_launches = program_count("nms.launches") - nms0
-    main_epilogues = program_count("conv_epilogue.launches") - epilogues0
-    epilogues.append(main_epilogues)
+    counted_epilogues()
+    main_epilogues, main_pooled = epilogues[-1], pooled[-1]
     log(f"main path NMS launches: f32 {after_f32}, bf16 {after_bf16 - after_f32}, "
         f"fast {after_fast - after_bf16}, bf16 batch 1 {main_launches - after_fast}; "
-        f"epilogue launches after each run {epilogues}")
+        f"epilogue launches after each run {epilogues}, of them pooled {pooled}")
     if not (0 < after_f32 < after_bf16 < after_fast < main_launches):
         raise AssertionError("the main path did not launch the NMS kernel in every run")
-    if epilogues != [EPILOGUES_A_FORWARD["ssd300"] * (k + 1) for k in range(4)]:
+    if (epilogues != [EPILOGUES_A_FORWARD["ssd300"] * (k + 1) for k in range(4)]
+            or pooled != [POOLED_A_FORWARD["ssd300"] * (k + 1) for k in range(4)]):
         raise AssertionError(f"the main path's epilogue launches after each run {epilogues}, "
-                             f"expected {EPILOGUES_A_FORWARD['ssd300']} a forward")
+                             f"pooled {pooled}, expected {EPILOGUES_A_FORWARD['ssd300']} and "
+                             f"{POOLED_A_FORWARD['ssd300']} a forward")
 
     for name, det in (("f32", det_f32), ("bf16", det_bf16), ("fast", det_fast),
                       ("bf16 batch 1", det_one)):
@@ -3513,9 +3686,22 @@ def main():
         bound_ms=epilogue["main"]["bound_ms"], bound_by="bytes",
         library_ms=epilogue["main"]["library_ms"], library_note=EPILOGUE_LIBRARY_NOTE,
         shape=epilogue["main"]["case"],
-        launches_by_path=dict(main_path=main_epilogues, **serve_epilogues,
+        launches_by_path=dict(main_path=main_epilogues,
+                              **serve_epilogues["conv_epilogue.launches"],
                               ssd_r34_forward=epilogue["forwards"]["ssd_r34_1200_b8"],
                               ssd300_forward=epilogue["forwards"]["ssd300_b8"]),
+    ), dict(
+        name="conv_epilogue_pool", route="cuda", source="ssd_keras_torch/csrc/conv_epilogue.cu",
+        replaces="none (XLA fuses the bias, the ReLU and the max pool into the JAX package's "
+                 "convolutions)",
+        launches=main_pooled, max_abs_err=0,
+        ms=epilogue["pool_main"]["kernel_span_ms"], call_ms=epilogue["pool_main"]["call_ms"],
+        plain_ms=epilogue["pool_main"]["plain_ms"], bound_ms=epilogue["pool_main"]["bound_ms"],
+        bound_by="bytes", library_ms=epilogue["pool_main"]["library_ms"],
+        library_note=POOL_LIBRARY_NOTE, shape=epilogue["pool_main"]["case"],
+        launches_by_path=dict(main_path=main_pooled, **serve_epilogues["conv_epilogue.pooled"],
+                              ssd_r34_forward=epilogue["pooled"]["ssd_r34_1200_b8"],
+                              ssd300_forward=epilogue["pooled"]["ssd300_b8"]),
     )]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -158,6 +158,8 @@ def load_library() -> ctypes.CDLL:
     q = ctypes.c_longlong
     lib.ssd_conv_epilogue.argtypes = [p, p, p, i, q, q, q, i, p]
     lib.ssd_conv_epilogue.restype = ctypes.c_int
+    lib.ssd_conv_epilogue_pool.argtypes = [p, p, p, i, q, q, q, q, q, q, i, i, i, p]
+    lib.ssd_conv_epilogue_pool.restype = ctypes.c_int
     return lib
 
 

@@ -20,7 +20,7 @@ from torch import nn
 
 from ssd_keras_torch import decoder as decoder_mod
 from ssd_keras_torch.config import SSDConfig
-from ssd_keras_torch.models.layers import (conv2d_epilogue, fuse_head_params,
+from ssd_keras_torch.models.layers import (MaxPool, conv2d_epilogue, fuse_head_params,
                                            fused_prediction_heads)
 
 __all__ = [
@@ -106,16 +106,17 @@ class SSDModule(nn.Module):
         return out
 
     def conv(self, x: torch.Tensor, name: str, relu: bool = False,
-             residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+             residual: Optional[torch.Tensor] = None,
+             pool: Optional[MaxPool] = None) -> torch.Tensor:
         """The named ``nn.Conv2d`` (a dotted path for a nested one) on ``x``,
         its f32 weight and bias cast to ``x``'s dtype at use (flax's
-        ``.astype(dtype)``), then ``residual`` added and the ReLU, if asked
-        (``layers.conv2d_epilogue``)."""
+        ``.astype(dtype)``), then ``residual`` added, the ReLU and the max
+        pool, if asked (``layers.conv2d_epilogue``)."""
         m = self.get_submodule(name)
         weight, bias = self.cast_params(
             (name, x.dtype), (m.weight, m.bias), lambda w, b: (w.to(x.dtype), b.to(x.dtype)))
         return conv2d_epilogue(x, weight, bias, m.stride, m.padding, m.dilation, relu=relu,
-                               residual=residual)
+                               residual=residual, pool=pool)
 
     def heads(self, feat: torch.Tensor, conf_name: str, loc_name: str):
         """The named conf and loc heads on ``feat`` as one convolution

@@ -21,9 +21,11 @@ from torch import nn
 
 from ssd_keras_torch.kernels import conv_epilogue as epilogue_kernel
 from ssd_keras_torch.ops.anchors import anchor_grid_for_layer
+from ssd_keras_torch.ops.conv_epilogue import MaxPool
 
 __all__ = ["BatchNorm", "batch_statistics_over", "L2Normalization", "AnchorBoxes",
-           "preprocess_input", "conv2d_epilogue", "fuse_head_params", "fused_prediction_heads"]
+           "preprocess_input", "MaxPool", "conv2d_epilogue", "fuse_head_params",
+           "fused_prediction_heads"]
 
 # The process group over whose ranks BatchNorm takes its batch statistics,
 # set only inside ``batch_statistics_over``.
@@ -208,25 +210,33 @@ def conv2d_epilogue(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     stride: Union[int, Tuple[int, int]] = 1, padding: Union[int, Tuple[int, int]] = 0,
     dilation: Union[int, Tuple[int, int]] = 1, relu: bool = False,
-    residual: Optional[torch.Tensor] = None,
+    residual: Optional[torch.Tensor] = None, pool: Optional[MaxPool] = None,
 ) -> torch.Tensor:
-    """``relu?(conv2d(x, weight, bias) + residual?)``: the one place the
-    models run a convolution with a bias.
+    """``pool?(relu?(conv2d(x, weight, bias) + residual?))``: the one place
+    the models run a convolution with a bias; ``pool`` is for a convolution
+    that feeds only a max pool after its ReLU, and takes no residual and,
+    without autograd, a channels_last ``x`` (as the models' maps are).
 
     While autograd records (training), PyTorch's own ops: the convolution
-    with its bias, then the residual's add, then the ReLU. While it does
-    not (``no_grad``, ``inference_mode``: serving, evaluation), the
-    convolution without its bias, then one in-place pass of the epilogue
-    kernel over its output (``kernels/conv_epilogue.py``; its plain version
-    on the CPU), which rounds as those ops round. The kernel has no
-    backward.
+    with its bias, then the residual's add, then the ReLU, then the pool.
+    While it does not (``no_grad``, ``inference_mode``: serving,
+    evaluation), the convolution without its bias, then one pass of the
+    epilogue kernel over its output (``kernels/conv_epilogue.py``; its
+    plain version on the CPU), which rounds as those ops round: in place,
+    or with ``pool`` the pooled variant, which writes only the pooled map.
+    The kernels have no backward.
     """
+    if pool is not None and (residual is not None or not relu):
+        raise ValueError("a pooled convolution takes the ReLU and no residual")
     if torch.is_grad_enabled():
         y = F.conv2d(x, weight, bias, stride, padding, dilation)
         if residual is not None:
             y = y + residual
-        return F.relu(y) if relu else y
+        y = F.relu(y) if relu else y
+        return y if pool is None else pool(y)
     y = F.conv2d(x, weight, None, stride, padding, dilation)
+    if pool is not None:
+        return epilogue_kernel.conv_epilogue_pool(y, bias, pool)
     return epilogue_kernel.conv_epilogue(y, bias, residual, relu)
 
 

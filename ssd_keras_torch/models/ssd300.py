@@ -20,7 +20,6 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ssd_keras_torch.config import SSDConfig
@@ -33,7 +32,7 @@ from ssd_keras_torch.models.common import (
     same_pool_size,
     valid_size,
 )
-from ssd_keras_torch.models.layers import L2Normalization, preprocess_input
+from ssd_keras_torch.models.layers import L2Normalization, MaxPool, preprocess_input
 
 __all__ = ["SSD300", "ssd_300", "ssd300_predictor_sizes", "init_weights"]
 
@@ -46,6 +45,10 @@ _HEAD_SOURCES = (
     ("conv8_2", 256),
     ("conv9_2", 256),
 )
+
+# pool1-4, 2x2/2 'SAME' (75 -> 38), and pool5, 3x3/1 'SAME'.
+_POOL = MaxPool(2, 2, ceil_mode=True)
+_POOL5 = MaxPool(3, 1, 1)
 
 # name -> (in, out, kernel, Conv2d keyword arguments), in graph order.
 _CONVS = {
@@ -121,9 +124,11 @@ class SSD300(SSDModule):
                             nn.Conv2d(cin, n_boxes * n_classes, 3, padding=1))
             self.add_module(f"{src}_mbox_loc", nn.Conv2d(cin, n_boxes * 4, 3, padding=1))
 
-    def _convs(self, x: torch.Tensor, names) -> torch.Tensor:
-        for name in names:
-            x = self.conv(x, name, relu=True)
+    def _convs(self, x: torch.Tensor, names, pool: Optional[MaxPool] = None) -> torch.Tensor:
+        """The named convolutions in turn, each with its ReLU; ``pool`` after
+        the last (in its epilogue without autograd)."""
+        for k, name in enumerate(names):
+            x = self.conv(x, name, relu=True, pool=pool if k == len(names) - 1 else None)
         return x
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -134,16 +139,12 @@ class SSD300(SSDModule):
             consts["swap_channels"],
         ).permute(0, 3, 1, 2)
 
-        def pool(t):
-            return F.max_pool2d(t, 2, 2, ceil_mode=True)
-
-        x = pool(self._convs(x, ("conv1_1", "conv1_2")))
-        x = pool(self._convs(x, ("conv2_1", "conv2_2")))
-        x = pool(self._convs(x, ("conv3_1", "conv3_2", "conv3_3")))
+        x = self._convs(x, ("conv1_1", "conv1_2"), _POOL)
+        x = self._convs(x, ("conv2_1", "conv2_2"), _POOL)
+        x = self._convs(x, ("conv3_1", "conv3_2", "conv3_3"), _POOL)
         conv4_3 = self._convs(x, ("conv4_1", "conv4_2", "conv4_3"))
-        x = pool(conv4_3)
-        x = self._convs(x, ("conv5_1", "conv5_2", "conv5_3"))
-        x = F.max_pool2d(x, 3, 1, padding=1)  # pool5
+        x = _POOL(conv4_3)  # conv4_3 also feeds conv4_3_norm
+        x = self._convs(x, ("conv5_1", "conv5_2", "conv5_3"), _POOL5)
         fc7 = self._convs(x, ("fc6", "fc7"))
         conv6_2 = self._convs(fc7, ("conv6_1", "conv6_2"))
         conv7_2 = self._convs(conv6_2, ("conv7_1", "conv7_2"))

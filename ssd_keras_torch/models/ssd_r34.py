@@ -53,7 +53,7 @@ from ssd_keras_torch.models.common import (
     init_weights,
     valid_size,
 )
-from ssd_keras_torch.models.layers import BatchNorm, conv2d_epilogue, preprocess_input
+from ssd_keras_torch.models.layers import BatchNorm, MaxPool, conv2d_epilogue, preprocess_input
 from ssd_keras_torch.optimize import fold_batchnorm
 from ssd_keras_torch.utils.profiling import count, span
 
@@ -195,21 +195,22 @@ class SSDR34(SSDModule):
         ).to(self.compute_dtype).permute(0, 3, 1, 2)
         folded = self._folded(x.dtype) if self.fold_bn else None
 
-        def conv_bn(t, conv, bn, relu=False, residual=None):
-            """The conv and its BatchNorm, then ``residual`` added and the
-            ReLU, if asked: folded, one ``conv2d_epilogue``."""
+        def conv_bn(t, conv, bn, relu=False, residual=None, pool=None):
+            """The conv and its BatchNorm, then ``residual`` added, the ReLU
+            and the max pool, if asked: folded, one ``conv2d_epilogue``."""
             m = self.get_submodule(conv)
             if folded is not None:
                 weight, bias = folded[conv]
                 return conv2d_epilogue(t, weight, bias, m.stride, m.padding, relu=relu,
-                                       residual=residual)
+                                       residual=residual, pool=pool)
             weight = self.cast_params((conv, t.dtype), (m.weight,), lambda w: (w.to(t.dtype),))[0]
             y = self.get_submodule(bn)(F.conv2d(t, weight, None, m.stride, m.padding))
             if residual is not None:
                 y = y.add_(residual)
-            return F.relu_(y) if relu else y
+            y = F.relu_(y) if relu else y
+            return y if pool is None else pool(y)
 
-        x = F.max_pool2d(conv_bn(x, "conv1", "bn1", relu=True), 3, 2, 1)
+        x = conv_bn(x, "conv1", "bn1", relu=True, pool=MaxPool(3, 2, 1))
         for i, (blocks, _, _) in enumerate(_LAYERS, start=1):
             for j in range(blocks):
                 p = f"layer{i}.{j}"

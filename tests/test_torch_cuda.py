@@ -17,9 +17,12 @@ index, calls from several threads, ``DataGenerator``'s batch path), and
 the resize kernel against its plain version and the evaluator's card path
 against the host chain (batches, results, back-to-back decodes), and the
 convolutions' epilogue kernel against its plain version and PyTorch's ops
-(``chip_smoke.EPILOGUE_CASES``), counted in the predictor's graphs (29 an
-SSD300 forward, 45 an SSD-ResNet34 one) and in the entry's captured forward
-(29), and giving the detections of the grad-enabled forward.
+(``chip_smoke.EPILOGUE_CASES``), its pooled variant against its plain
+version and PyTorch's ops then ``max_pool2d`` (``chip_smoke.POOL_CASES``),
+both counted in the predictor's graphs (29 an SSD300 forward, 4 of them
+pooled; 45 an SSD-ResNet34 one, 1 pooled) and in the entry's captured
+forward (29, 4 pooled), and giving the detections of the grad-enabled
+forward.
 
 Every test here is marked ``cuda`` and skips without a card. The file
 imports neither JAX nor the JAX package, so it also runs on a machine with
@@ -35,9 +38,9 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from chip_smoke import (EPILOGUE_CASES, JPEG_COLOR_CASES, EagerPredictor, StreamModel,
-                        epilogue_inputs, library_epilogue, noisy_oracle, random_lanes,
-                        same_bits, seeded_state)
+from chip_smoke import (EPILOGUE_CASES, JPEG_COLOR_CASES, POOL_CASES, EagerPredictor,
+                        StreamModel, epilogue_inputs, library_epilogue, library_pool,
+                        noisy_oracle, pool_inputs, random_lanes, same_bits, seeded_state)
 from test_torch_resize import RESIZE_CASES
 from ssd_keras_torch import SSDConfig, SSDInputEncoder, SSDLoss, SSDPredictor, ssd_7, ssd_300
 from ssd_keras_torch import train as T
@@ -1000,24 +1003,49 @@ def test_epilogue_kernel_equals_plain_and_pytorchs_ops(cuda, case):
     assert same_bits(got, plain) and same_bits(got, library)
 
 
+@pytest.mark.parametrize("case", sorted(POOL_CASES))
+def test_pooled_epilogue_kernel_equals_plain_and_pytorchs_ops(cuda, case):
+    """At SSD-ResNet34's b8 stem map, SSD300's b8 pooled maps and the edge
+    cases (NaN, +-0.0 and +-inf planted; a map of signed zeros and
+    negatives under a bias of -0.0): the pooled kernel, its plain version
+    and PyTorch's add_ / relu_ / max_pool2d give the same bits, in a new
+    channels_last map; the input is left as it was; one call counts once
+    in each counter."""
+    from ssd_keras_torch.kernels import conv_epilogue as epilogue_kernel
+    from ssd_keras_torch.ops import conv_epilogue as plain_epilogue
+
+    pool = POOL_CASES[case][2]
+    y, bias = pool_inputs(case, cuda)
+    before = _count("conv_epilogue.launches"), _count("conv_epilogue.pooled")
+    got = epilogue_kernel.conv_epilogue_pool(y, bias, pool)
+    assert (_count("conv_epilogue.launches"), _count("conv_epilogue.pooled")) == (
+        before[0] + 1, before[1] + 1)
+    plain = plain_epilogue.conv_epilogue_pool(y, bias, pool)
+    library = library_pool(pool_inputs(case, cuda)[0], bias, pool)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert same_bits(got, plain) and same_bits(got, library)
+    assert same_bits(y, pool_inputs(case, cuda)[0])
+
+
 def _graph_epilogues(model, frames, batch_size):
     """Captures ``model``'s graphs through a predictor, then replays: the
-    epilogue calls each graph holds, and the kernel's launches over one
-    more ``predict``."""
+    epilogue calls and the pooled ones each graph holds, and the kernels'
+    launches and pooled launches over one more ``predict``."""
+    names = ("conv_epilogue.launches", "conv_epilogue.pooled")
     predictor = SSDPredictor(model, batch_size=batch_size)
     predictor.predict(frames)
-    calls = [run.counts["conv_epilogue.launches"] for run in predictor._compiled.values()]
-    before = _count("conv_epilogue.launches")
+    calls = [tuple(run.counts[k] for k in names) for run in predictor._compiled.values()]
+    before = [_count(k) for k in names]
     predictor.predict(frames)
     chunks = -(-len(frames) // batch_size)
-    return calls, _count("conv_epilogue.launches") - before, chunks
+    return calls, tuple(_count(k) - b for k, b in zip(names, before)), chunks
 
 
 def test_graphs_hold_and_count_the_epilogues_of_ssd300(cuda):
     frames = [np.random.RandomState(i).randint(0, 256, (480, 640, 3), dtype=np.uint8)
               for i in range(3)]
     calls, launches, chunks = _graph_epilogues(_served_model(cuda), frames, 2)
-    assert calls == [29] and launches == 29 * chunks
+    assert calls == [(29, 4)] and launches == (29 * chunks, 4 * chunks)
 
 
 def test_graphs_hold_and_count_the_epilogues_of_ssd_r34(cuda):
@@ -1029,22 +1057,23 @@ def test_graphs_hold_and_count_the_epilogues_of_ssd_r34(cuda):
     frames = [np.random.RandomState(i).randint(0, 256, (480, 640, 3), dtype=np.uint8)
               for i in range(3)]
     calls, launches, chunks = _graph_epilogues(model, frames, 2)
-    assert calls == [45] and launches == 45 * chunks
+    assert calls == [(45, 1)] and launches == (45 * chunks, chunks)
 
 
 def test_captured_forward_replays_count_the_epilogues(cuda):
     """The entry's captured SSD300 forward holds its 29 convolutions'
-    epilogues and counts them at each replay, as the predictor's graphs do;
-    its output is the eager forward's, bit for bit."""
+    epilogues, 4 of them pooled, and counts them at each replay, as the
+    predictor's graphs do; its output is the eager forward's, bit for bit."""
     from ssd_keras_torch import graft_entry
 
     model = graft_entry.entry_model(cuda)
     x = torch.from_numpy(graft_entry.example_batch()).to(cuda)
     captured = graft_entry.CapturedForward(graft_entry.forward, model, x)
-    assert captured.counts == {"conv_epilogue.launches": 29}
-    before = _count("conv_epilogue.launches")
+    assert captured.counts == {"conv_epilogue.launches": 29, "conv_epilogue.pooled": 4}
+    before = _count("conv_epilogue.launches"), _count("conv_epilogue.pooled")
     out = captured(x)
-    assert _count("conv_epilogue.launches") == before + 29
+    assert (_count("conv_epilogue.launches"), _count("conv_epilogue.pooled")) == (
+        before[0] + 29, before[1] + 4)
     with torch.inference_mode():
         assert torch.equal(out, graft_entry.forward(model, x))
 
